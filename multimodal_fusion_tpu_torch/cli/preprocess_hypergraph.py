@@ -1,0 +1,91 @@
+"""Hypergraph preprocessing CLI of the PyTorch port.
+
+Same flags as ``multimodal_fusion_tpu.cli.preprocess_hypergraph`` plus
+``--device`` (default ``cuda``)::
+
+    python -m multimodal_fusion_tpu_torch.cli.preprocess_hypergraph \\
+        --csv_path D/dataset.csv --data_root_dir D --no_save_similarity
+
+Modes this slice does not port yet exit with an error naming their
+ROADMAP.md item.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+from multimodal_fusion_tpu_torch.hypergraph.build import process_dataset
+
+
+def _not_ported(args):
+    """(flag, ROADMAP.md Queue 1 item) of the first mode asked for that this
+    slice does not port, else None."""
+    asked = [
+        ("--cache_similarity", args.cache_similarity, "similarity caches and rebuild"),
+        ("--rebuild", args.rebuild, "similarity caches and rebuild"),
+        ("--threshold_median_ratio", args.threshold_median_ratio is not None,
+         "similarity caches and rebuild"),
+        ("--mesh_data", (args.mesh_data or 0) > 1, "mesh"),
+        ("--file_batch > 1", args.file_batch > 1, "batched build"),
+    ]
+    return next(((flag, item) for flag, on, item in asked if on), None)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(description="Build WSI+TMA hypergraphs into patient h5 files")
+    p.add_argument("--csv_path", type=str, required=True)
+    p.add_argument("--data_root_dir", type=str, required=True)
+    p.add_argument("--num_wsi_super_patches", type=int, default=100)
+    p.add_argument("--num_groups", type=int, default=10)
+    p.add_argument("--hypergraph_k", type=int, default=5)
+    p.add_argument("--num_hyperedges", type=int, default=10)
+    p.add_argument("--lambda_h", type=float, default=1.0)
+    p.add_argument("--lambda_g", type=float, default=1.0)
+    p.add_argument("--output_stats_path", type=str, default=None)
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no_save_similarity", action="store_true", default=False)
+    p.add_argument("--file_batch", type=int, default=1)
+    p.add_argument("--bucket_patches", type=int, default=None)
+    p.add_argument("--cache_similarity", action="store_true", default=False)
+    p.add_argument("--rebuild", action="store_true", default=False)
+    p.add_argument("--threshold_median_ratio", type=float, default=None)
+    p.add_argument("--mesh_data", type=int, default=None)
+    p.add_argument("--upload_dtype", type=str, default="float32",
+                   choices=["float32", "bfloat16"])
+    p.add_argument("--skip_existing", action="store_true", default=False)
+    p.add_argument("--device", type=str, default="cuda",
+                   help="torch device of the build (cuda, cuda:N or cpu)")
+    return p
+
+
+def main(argv=None):
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    missing = _not_ported(args)
+    if missing:
+        flag, item = missing
+        parser.error(f"{flag} is not ported to PyTorch yet: see ROADMAP.md, Queue 1, '{item}'")
+    stats, summary = process_dataset(
+        args.csv_path,
+        args.data_root_dir,
+        num_wsi_super_patches=args.num_wsi_super_patches,
+        num_groups=args.num_groups,
+        hypergraph_k=args.hypergraph_k,
+        num_hyperedges=args.num_hyperedges,
+        lambda_h=args.lambda_h,
+        lambda_g=args.lambda_g,
+        output_stats_path=args.output_stats_path,
+        seed=args.seed,
+        save_similarity=not args.no_save_similarity,
+        bucket_patches=args.bucket_patches,
+        upload_dtype=args.upload_dtype,
+        skip_existing=args.skip_existing,
+        device=args.device,
+    )
+    print(json.dumps(summary))
+    return stats
+
+
+if __name__ == "__main__":
+    main()
