@@ -9,8 +9,8 @@ Math::
 Squared feature distances use the ``||a||^2 + ||b||^2 - 2 a.b`` expansion
 in true float32 (``device.strict_fp32``); low-dimensional inputs
 (positions) use direct per-coordinate differences, which need no clamp.
-The fused CUDA kernel for the combined similarity is
-``ops.similarity_kernel``.
+The combined similarity has one plain version, ``similarity_rect_plain``,
+beside its fused CUDA kernel in ``ops.similarity_kernel``.
 """
 
 from __future__ import annotations
@@ -18,6 +18,8 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from multimodal_fusion_tpu_torch.ops.similarity_kernel import similarity_rect_plain
 
 # At or below this row width the norm expansion is replaced by direct
 # per-coordinate differences (positions are 2-D everywhere).
@@ -58,10 +60,9 @@ def combined_similarity(
     lambda_h: float = 1.0,
     lambda_g: float = 1.0,
 ) -> torch.Tensor:
-    """K = K_h * K_g as a single exp of the weighted sum of distances."""
-    d_h = pairwise_sq_dists(features)
-    d_g = pairwise_sq_dists(positions)
-    return torch.exp(-(lambda_h * d_h + lambda_g * d_g))
+    """K = K_h * K_g as a single exp of the weighted sum of distances, in
+    plain PyTorch on any device: K1's plain version on the square case."""
+    return similarity_rect_plain(features, positions, features, positions, lambda_h, lambda_g)
 
 
 def cross_similarity(a: torch.Tensor, b: torch.Tensor, lam: float = 1.0) -> torch.Tensor:

@@ -84,11 +84,11 @@ def test_square_similarity_matches_jax_combined():
     p = rng.uniform(0, 2, (150, 2)).astype(np.float32)
     want = _np(jsim.combined_similarity(jnp.asarray(f), jnp.asarray(p), 0.7, 0.3))
     auto = combined_similarity_auto(T(f), T(p), 0.7, 0.3).numpy()
-    plain_xla_form = tsim.combined_similarity(T(f), T(p), 0.7, 0.3).numpy()
+    plain = tsim.combined_similarity(T(f), T(p), 0.7, 0.3).numpy()
     cross = tsim.cross_similarity(T(f[:40]), T(f[40:]), 0.7).numpy()
     # same 1e-6 abs bound and reason as above
     np.testing.assert_allclose(auto, want, rtol=0, atol=1e-6)
-    np.testing.assert_allclose(plain_xla_form, want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(plain, want, rtol=0, atol=1e-6)
     np.testing.assert_allclose(
         cross, _np(jsim.cross_similarity(jnp.asarray(f[:40]), jnp.asarray(f[40:]), 0.7)),
         rtol=0, atol=1e-6,
