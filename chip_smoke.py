@@ -4,13 +4,21 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multimodal_fusion_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, drives the
-per-slide hypergraph build through its entry points at the benchmark's shape
-(8 slides x 4096 patches x 1024-d features + 32 TMA cores, 100/10/5/10,
-``save_similarity=False``, ``pipeline_depth=4``), checks the result against
-a CPU rebuild, then builds one 32768-patch slide and one slide with 4096
-graph nodes.  Every phase must pass: the script exits non-zero otherwise,
-and also when no CUDA device is present (it never falls back to the CPU).
+holds each against its plain PyTorch version on the card, and drives the
+port's two paths through their entry points:
+
+- the per-slide hypergraph build at the benchmark's shape (8 slides x 4096
+  patches x 1024-d features + 32 TMA cores, 100/10/5/10,
+  ``save_similarity=False``, ``pipeline_depth=4``), checked against a CPU
+  rebuild, then one 32768-patch slide and one slide with 4096 graph nodes;
+- ViT-L/16 TMA feature extraction at full width (seeded random weights,
+  ``make_feature_extractor(batch_size=32)`` + ``extract_marker_features`` on
+  synthetic uint8 cores), checked against a CPU run of the port, against the
+  einsum attention on the card, and bf16 against float32; its throughput in
+  float32 and bf16 and a profile of one batch.
+
+Every phase must pass: the script exits non-zero otherwise, and also when
+no CUDA device is present (it never falls back to the CPU).
 
 The line before the last is a JSON object with one entry per kernel
 (launches on the main path, error against the plain version, times, bound);
@@ -32,8 +40,10 @@ import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data-sheet peaks (dense): non-tensor float32 and HBM3 bandwidth
+# H100 SXM data-sheet peaks (dense): non-tensor float32, bf16 tensor cores
+# and HBM3 bandwidth
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 # the benchmark's build configuration (bench.py)
@@ -42,6 +52,11 @@ NUM_SUPER, NUM_GROUPS, K, NUM_HYPEREDGES = 100, 10, 5, 10
 SEED = 42
 MAIN_PATH_WINDOWS = 5  # timed windows of N_FILES slides; the median is reported
 LARGE_NODES = 4096  # graph nodes at which the build's node KNN switches to K2
+
+# ViT-L/16 extraction (bench.py:674-737: 32 crops of 256 x 256 per batch)
+VIT_BATCH, VIT_DEPTH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 32, 24, 16, 257, 64
+VIT_WINDOW = 96  # patches per timed window (3 batches)
+VIT_WINDOWS = 5
 
 
 def _card_line() -> str:
@@ -113,6 +128,61 @@ def _knn_bound_ms(n, d, k):
     )
 
 
+def _attention_bound_ms(b, h, t_q, t_k, hd, itemsize):
+    """Operations 4*B*H*Tq*Tk*hd (q k^T and P.V) at the f32 non-tensor or
+    the bf16 tensor peak; bytes of q, k, v and o at the HBM rate."""
+    ops = 4 * b * h * t_q * t_k * hd
+    nbytes = b * h * (2 * t_q + 2 * t_k) * hd * itemsize
+    t_ops = ops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _vit_dense_flops(n_images, dim=1024, depth=VIT_DEPTH, tokens=VIT_TOKENS, patch=16):
+    """FLOPs of ViT-L/16's Linear layers for ``n_images`` (qkv, proj, fc1,
+    fc2 per token and block, plus the patch embedding); attention is K3's."""
+    per_token = 2 * dim * (3 * dim + dim + 4 * dim + 4 * dim)
+    embed = 2 * (patch * patch * 3) * dim * (tokens - 1)
+    return n_images * (depth * tokens * per_token + embed)
+
+
+def _device_events(prof):
+    """Device-side entries of a profile (kernels and copies; the operator
+    entries above them carry the same device time again), with their
+    device time in microseconds."""
+    from torch.autograd import DeviceType
+
+    def dev_us(e):
+        return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
+
+    return [(e, dev_us(e)) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+
+
+def _synthetic_core(rng, h, w):
+    """uint8 [h, w, 3] tissue-like core: blocky colour field plus noise."""
+    base = rng.integers(60, 200, (h // 32 + 1, w // 32 + 1, 3))
+    img = np.repeat(np.repeat(base, 32, axis=0), 32, axis=1)[:h, :w]
+    return np.clip(img + rng.normal(0, 20, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def _bf16_units(got, want, scale) -> float:
+    """Largest |got - want| of bf16 attention outputs in units of
+    2^-8 * ``scale``, where ``scale`` is the plain version's output on |v|
+    (elementwise sum_j p_j |v_j| / l, the size of the terms o sums; o
+    itself may cancel to near zero).  Each side rounds every p_j to bf16
+    (a flip moves p_j by at most 2^-7 of itself) and o to bf16 (at most
+    2^-7 of |o| <= scale), so the two agree within 4 units, up to float32
+    rounding."""
+    err = (got.float() - want.float()).abs()
+    return float((err / (scale.float().clamp_min(1e-30) * 2 ** -8)).max())
+
+
+def _rel_l2(a, b) -> float:
+    """Largest per-row relative L2 distance of ``a`` from ``b``."""
+    return float((np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)).max())
+
+
 def _exact_sq_dists(x64, idx, chunk: int = 512):
     """[N, k] float64 squared distances from each row of ``x64`` to the rows
     ``idx`` lists for it."""
@@ -149,10 +219,18 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from multimodal_fusion_tpu_torch.data.tma_extraction import (
+        extract_marker_features,
+        make_feature_extractor,
+        save_marker_npz,
+    )
     from multimodal_fusion_tpu_torch.device import resolve_device
     from multimodal_fusion_tpu_torch.hypergraph import build
     from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide, make_clustered_dataset
+    from multimodal_fusion_tpu_torch.models.vit import vit_large_16
     from multimodal_fusion_tpu_torch.ops import _cuda
+    from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention
+    from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
     from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -163,7 +241,7 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     s = Smoke(torch)
-    counters = {"similarity": similarity_rect, "knn": knn}
+    counters = {"similarity": similarity_rect, "knn": knn, "attention": attention_fwd}
     main_path_launches = {name: 0 for name in counters}
     main_path_ms_per_slide: list = []  # phase 4's median window, read by phase 7
 
@@ -478,30 +556,273 @@ def main() -> int:
             build.process_arrays(*slide, **params, save_similarity=False, device=dev)
             wall_ms = (time.perf_counter() - t0) * 1e3
 
-        from torch.autograd import DeviceType
-
-        def dev_us(e):
-            return getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0)
-
-        # device-side entries only (kernels and copies): the operator entries
-        # above them carry the same device time again
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
-        busy_ms = sum(dev_us(e) for e in events) / 1e3
+        events = _device_events(prof)
+        busy_ms = sum(us for _, us in events) / 1e3
         if not events:
             s.log("  profiler saw no device time: device busy share not measured")
             return
         s.timed(f"one {N_PATCHES}-patch slide under torch.profiler: wall {wall_ms:.2f} ms, "
                 f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% of the "
-                f"profiled wall), {sum(e.count for e in events)} device ops")
+                f"profiled wall), {sum(e.count for e, _ in events)} device ops")
         if main_path_ms_per_slide:
             # an estimate: the profiler inflates host time, so the profiled
             # device time is set against phase 4's unprofiled wall per slide
             per_slide = main_path_ms_per_slide[0]
             s.timed(f"estimate: profiled device time over phase 4's median {per_slide:.2f} ms "
                     f"per slide = {100 * busy_ms / per_slide:.1f}% device busy (two runs)")
-        for e in sorted(events, key=dev_us, reverse=True)[:10]:
-            s.timed(f"  {dev_us(e) / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:10]:
+            s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+    # ---------------------------------------------------------------- 8
+    def attention_phase():
+        """K3 against its plain version on the same inputs.  Tolerances: o
+        within 2e-5 absolute in float32; in bf16, elementwise within 4
+        units of 2^-8 times the plain output on |v| (``_bf16_units``: p
+        rounds to bf16 before P.V on both sides, a last-bit difference in
+        f32 p can flip a rounding, and o rounds to bf16); m exact where every
+        score is exact in f32 (inputs on a 1/8 grid), else within 1e-6 of
+        max(|m|, 1) (the f32 rounding of the dots, summed in another
+        order); l within 1e-5 relative; two launches bit-identical."""
+        import torch.nn.functional as F
+
+        rng = np.random.default_rng(8)
+
+        def draw(shape, dtype, grid=False):
+            x = rng.standard_normal(shape)
+            if grid:
+                x = np.round(np.clip(x, -1, 1) * 8) / 8
+            return torch.as_tensor(x.astype(np.float32), device=dev).to(dtype)
+
+        def qkv_views(dtype, grid=False):  # as the ViT block slices its projection
+            qkv = draw((VIT_BATCH, VIT_TOKENS, 3, VIT_HEADS, VIT_HEAD_DIM), dtype, grid)
+            return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+
+        def check(label, q, k, v, mask=None, rate=0.0, seed=None, m_exact=False):
+            got = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
+            again = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
+            want = plain_fused_attention(q, k, v, mask, dropout_rate=rate, seed=seed)
+            torch.cuda.synchronize()
+            s.check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                    f"K3 {label}: two launches bit-identical")
+            o_err = float((got[0].float() - want[0].float()).abs().max())
+            if q.dtype == torch.bfloat16:
+                scale = plain_fused_attention(q, k, v.abs(), mask, dropout_rate=rate, seed=seed)[0]
+                units = _bf16_units(got[0], want[0], scale)
+                s.check(units <= 4, f"K3 {label}: o within {units:.3f} <= 4 units of 2^-8 x "
+                                    f"the plain output on |v| (max abs err {o_err:.3e})")
+            else:
+                s.check(o_err <= 2e-5, f"K3 {label}: o max abs err {o_err:.3e} <= 2e-05")
+            if m_exact:
+                s.check(bool(torch.equal(got[1], want[1])), f"K3 {label}: m exact")
+            else:
+                m_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1.0)).max())
+                s.check(m_err <= 1e-6, f"K3 {label}: m within {m_err:.2e} <= 1e-6 of max(|m|, 1)")
+            l_err = float(((got[2] - want[2]).abs() / want[2]).max())
+            s.check(l_err <= 1e-5, f"K3 {label}: l max rel err {l_err:.2e} <= 1e-5")
+            return got, o_err
+
+        def timed(label, q, k, v, valid_k=None):
+            """Kernel, plain and SDPA (yardstick, no mask) times, and the
+            bound over the keys this call needs."""
+            b, t_q, h, hd = q.shape
+            ms = s.cuda_ms(lambda: attention_fwd(q, k, v))
+            plain_ms = s.cuda_ms(lambda: plain_fused_attention(q, k, v), iters=5)
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            lib_ms = s.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            bound, by = _attention_bound_ms(b, h, t_q, valid_k or k.shape[1], hd, q.element_size())
+            s.timed(f"K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                    f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            return ms, plain_ms, lib_ms, bound, by
+
+        # (a) the ViT-L shape, f32 and bf16, q/k/v strided views of one projection
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            shape = f"[{VIT_BATCH}x{VIT_HEADS}, {VIT_TOKENS}, {VIT_HEAD_DIM}] {name}"
+            check(f"ViT {shape}, 1/8-grid inputs", *qkv_views(dtype, grid=True), m_exact=True)
+            q, k, v = qkv_views(dtype)
+            _, err = check(f"ViT {shape}", q, k, v)
+            ms, plain_ms, lib_ms, bound, by = timed(f"ViT {shape}", q, k, v)
+            if dtype == torch.float32:  # the extraction's default path
+                s.kernels["attention"] = {
+                    "name": "attention", "route": "cuda",
+                    "source": "multimodal_fusion_tpu_torch/csrc/attention.cu",
+                    "replaces": "multimodal_fusion_tpu/ops/pallas_attention.py:130",
+                    "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
+                }
+        # (b) the MFMF bag shape (bench.py:739-756): batch 0 keeps a ragged
+        # 3001 of 4096 keys, batch 1 is all masked
+        bag = (2, 4096, 8, 64)
+        mask = torch.zeros((2, 4096), dtype=torch.bool, device=dev)
+        mask[0, :3001] = True
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            q, k, v = (draw(bag, dtype) for _ in range(3))
+            got, _ = check(f"bag [8, 4096, 64] {name}, ragged + all-masked kv_mask", q, k, v, mask)
+            uniform = v[1].float().mean(0)[None].expand_as(got[0][1])  # [Tq, H, hd]
+            if dtype == torch.bfloat16:
+                scale = v[1].float().abs().mean(0)[None].expand_as(uniform)
+                u_err, u_tol, unit = _bf16_units(got[0][1], uniform, scale), 4, " units"
+            else:
+                u_err, u_tol, unit = float((got[0][1] - uniform).abs().max()), 2e-5, " abs"
+            s.check(bool(torch.all(got[1][1] == -1e9)) and u_err <= u_tol,
+                    f"K3 bag {name}: all-masked bag gives m = -1e9 and the uniform average of v "
+                    f"(err {u_err:.3g} <= {u_tol:g}{unit})")
+            timed(f"bag [1x8, 4096, 64] {name}, no mask", q[:1], k[:1], v[:1])
+        # (c) dropout, against the hash-mask plain version
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = draw((2, 40, 4, 64), dtype), draw((2, 300, 4, 64), dtype), draw((2, 300, 4, 64), dtype)
+            check(f"[2x4, 40x300, 64] {name}, dropout 0.1", q, k, v, rate=0.1, seed=-1399772917)
+
+    # ---------------------------------------------------------------- 9
+    vit = {}  # extractors and the timed window, read by phase 10
+
+    def vit_phase():
+        """The slice's main path: ViT-L/16 extraction at full width."""
+        from multimodal_fusion_tpu_torch.data.tma_extraction import extract_patches_from_image
+
+        t0 = time.perf_counter()
+        model = vit_large_16(torch.Generator(device=dev).manual_seed(SEED))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for p in model.parameters())
+        s.log(f"  ViT-L/16 seeded init on the card: {n_params / 1e6:.1f} M parameters, "
+              f"{time.perf_counter() - t0:.2f} s")
+        rng = np.random.default_rng(9)
+        cores = {f"core_block1_x{i}_y{i}_patient{i:03d}": _synthetic_core(rng, 512, 512)
+                 for i in range(11)}
+        cores["core_block2_x1_y1_patient100"] = _synthetic_core(rng, 200, 180)  # Lanczos
+        white = _synthetic_core(rng, 512, 512)
+        white[:300, :300] = 255
+        cores["core_block2_x2_y2_patient101"] = white
+        filt = dict(white_threshold=0.9, min_content_ratio=0.5)
+        n_patches = {key: len(extract_patches_from_image(img, 256, 128, **filt))
+                     for key, img in cores.items()}
+        n_batches = sum(-(-n // VIT_BATCH) for n in n_patches.values())
+        s.log(f"  {len(cores)} cores, {sum(n_patches.values())} patches after the white "
+              f"filter ({n_patches['core_block2_x2_y2_patient101']} of 9 kept on the white "
+              f"core), {n_batches} batches of {VIT_BATCH}")
+
+        f32 = make_feature_extractor(model, batch_size=VIT_BATCH)
+        bf16 = make_feature_extractor(model, batch_size=VIT_BATCH, compute_dtype="bfloat16")
+        xla = make_feature_extractor(model, batch_size=VIT_BATCH, attn_impl="xla")
+        window = [p for key in list(cores)[:11] for p in
+                  extract_patches_from_image(cores[key], 256, 128)][:VIT_WINDOW]
+        vit.update(float32=f32, bfloat16=bf16, window=window)
+
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = extract_marker_features(cores, f32, 256, 128, **filt)
+        s.timed(f"extract_marker_features ({len(cores)} cores, first CUDA use of the "
+                f"extractor): {time.perf_counter() - t0:.3f} s")
+        s.check(attention_fwd.launches == VIT_DEPTH * n_batches,
+                f"K3 launched {VIT_DEPTH} times per batch ({attention_fwd.launches} == "
+                f"{VIT_DEPTH} x {n_batches})")
+        add_main_path_counts()  # the checks below launch K3 outside the main path
+        s.check(set(feats) == set(cores) and all(
+            feats[key].shape == (n, 1024) and feats[key].dtype == np.float32
+            for key, n in n_patches.items()), "features: one [N_patches, 1024] f32 entry per core")
+        s.check(all(np.isfinite(f).all() for f in feats.values()), "features finite")
+        with tempfile.TemporaryDirectory() as td:
+            save_marker_npz(Path(td) / "tma_uni_tile_1024_cd3.npz", feats)
+            with np.load(Path(td) / "tma_uni_tile_1024_cd3.npz") as z:
+                s.check(sorted(z.files) == sorted(feats), "NPZ keys are the core keys")
+
+        # check 1: a CPU run of the port from the same weights
+        first = list(cores)[0]
+        patches2 = extract_patches_from_image(cores[first], 256, 128, **filt)[:2]
+        t0 = time.perf_counter()
+        cpu = make_feature_extractor(model, batch_size=2, device="cpu")(patches2)
+        err = _rel_l2(feats[first][:2], cpu)
+        s.log(f"  CPU run of 2 patches: {time.perf_counter() - t0:.1f} s (host)")
+        s.check(err <= 1e-4, f"first two patches vs a CPU run of the port: relative L2 "
+                             f"{err:.2e} <= 1e-4")
+        # check 2: one full batch against the einsum attention on the card
+        batch = window[:VIT_BATCH]
+        a = f32(batch)
+        err = _rel_l2(a, xla(batch))
+        s.check(err <= 1e-4, f"one batch, K3 vs attn_impl='xla' on the card: relative L2 "
+                             f"{err:.2e} <= 1e-4")
+        # check 3: bf16 against float32
+        b = bf16(batch)
+        cos = float((np.sum(a * b, axis=1) / (np.linalg.norm(a, axis=1) *
+                                               np.linalg.norm(b, axis=1))).min())
+        s.check(cos >= 0.999, f"bf16 vs f32 CLS cosine min {cos:.6f} >= 0.999")
+        # UNI's LayerScale 1e-5 keeps every block's output near 1e-5 of the
+        # residual stream, so checks 1 and 2 barely see attention: repeat
+        # them on a ViT-L/16 with LayerScale 1
+        strong = vit_large_16(torch.Generator(device=dev).manual_seed(SEED + 1), init_values=1.0)
+        a1 = make_feature_extractor(strong, batch_size=VIT_BATCH)(batch)
+        err = _rel_l2(a1, make_feature_extractor(strong, batch_size=VIT_BATCH,
+                                                 attn_impl="xla")(batch))
+        s.check(err <= 1e-4, f"LayerScale 1: one batch, K3 vs attn_impl='xla': relative L2 "
+                             f"{err:.2e} <= 1e-4")
+        err = _rel_l2(a1[:2], make_feature_extractor(strong, batch_size=2, device="cpu")(batch[:2]))
+        s.check(err <= 1e-4, f"LayerScale 1: first two patches vs a CPU run of the port: "
+                             f"relative L2 {err:.2e} <= 1e-4")
+        b1 = make_feature_extractor(strong, batch_size=VIT_BATCH, compute_dtype="bfloat16")(batch)
+        cos1 = float((np.sum(a1 * b1, axis=1) / (np.linalg.norm(a1, axis=1) *
+                                                  np.linalg.norm(b1, axis=1))).min())
+        s.log(f"  LayerScale 1: bf16 vs f32 CLS cosine min {cos1:.6f} (measured, no bar)")
+        del strong
+
+        window_batches = VIT_WINDOWS * -(-VIT_WINDOW // VIT_BATCH)
+        for label in ("float32", "bfloat16"):
+            ex = vit[label]
+            ex(window)  # warm-up
+            reset_counts()
+            walls, finite = [], True
+            for _ in range(VIT_WINDOWS):
+                t0 = time.perf_counter()
+                out = ex(window)
+                walls.append(time.perf_counter() - t0)
+                finite &= bool(np.isfinite(out).all())
+            add_main_path_counts()
+            s.check(finite, f"{label} windows: features finite")
+            s.check(attention_fwd.launches == VIT_DEPTH * window_batches,
+                    f"{label} windows: K3 launched {VIT_DEPTH} times per batch "
+                    f"({attention_fwd.launches} == {VIT_DEPTH} x {window_batches})")
+            rates = sorted(VIT_WINDOW / w for w in walls)
+            med = VIT_WINDOW / float(np.median(walls))
+            vit[f"{label}_ms_per_batch"] = float(np.median(walls)) / (VIT_WINDOW / VIT_BATCH) * 1e3
+            s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+            s.timed(f"ViT-L/16 extraction {label}: median {med:.1f} patches/s over "
+                    f"{VIT_WINDOWS} windows of {VIT_WINDOW} (min {rates[0]:.1f}, max "
+                    f"{rates[-1]:.1f}, spread {100 * (rates[-1] / rates[0] - 1):.1f}%)")
+            flops = _vit_dense_flops(VIT_BATCH)
+            s.timed(f"  {label}: dense layers {flops / 1e12:.3f} TFLOP per {VIT_BATCH}-patch "
+                    f"batch, {flops / vit[f'{label}_ms_per_batch'] / 1e9:.1f} TFLOP/s at the "
+                    f"median window")
+        s.log(f"  K3 launches on the main path (the marker run and the timed windows): "
+              f"{main_path_launches['attention']}")
+
+    # ---------------------------------------------------------------- 10
+    def vit_profile_phase():
+        from torch.profiler import ProfilerActivity, profile
+
+        batch = vit["window"][:VIT_BATCH]
+        for label in ("float32", "bfloat16"):
+            ex = vit[label]
+            ex(batch)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                ex(batch)
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = _device_events(prof)
+            if not events:
+                s.log(f"  {label}: profiler saw no device time: device busy share not measured")
+                continue
+            busy_ms = sum(us for _, us in events) / 1e3
+            k3_ms = sum(us for e, us in events if "attn_" in e.key) / 1e3
+            s.timed(f"one {VIT_BATCH}-patch batch ({label}) under torch.profiler: wall "
+                    f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% "
+                    f"of the profiled wall), K3 {k3_ms:.2f} ms ({100 * k3_ms / busy_ms:.1f}% of "
+                    f"device time), {sum(e.count for e, _ in events)} device ops")
+            per_batch = vit.get(f"{label}_ms_per_batch")
+            if per_batch:
+                s.timed(f"estimate: profiled device time over phase 9's median {per_batch:.2f} ms "
+                        f"per batch = {100 * busy_ms / per_batch:.1f}% device busy (two runs)")
+            for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
+                s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
@@ -510,6 +831,9 @@ def main() -> int:
     s.phase("5. one 32768-patch slide", large_slide_phase)
     s.phase("6. one 4096-node slide", large_node_phase)
     s.phase("7. where one main-path slide's time goes", profile_phase)
+    s.phase("8. K3 attention kernel vs plain", attention_phase)
+    s.phase("9. main path: ViT-L/16 TMA feature extraction", vit_phase)
+    s.phase("10. where one ViT-L/16 batch's time goes", vit_profile_phase)
 
     for name, launches in main_path_launches.items():
         if name in s.kernels:

@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from multimodal_fusion_tpu_torch.device import resolve_device
+from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention
+from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
 from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide
 from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
 from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -95,3 +97,130 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
         knn(x, 11)
     with pytest.raises(ValueError):
         similarity_rect(x, x[:, :2], x[:, :3], x[:, :2])
+    q = torch.zeros((2, 5, 2, 16), device=cuda)
+    with pytest.raises(ValueError):
+        attention_fwd(q.half(), q.half(), q.half())  # float16 is not a K3 dtype
+    with pytest.raises(ValueError):
+        attention_fwd(q, q.bfloat16(), q)  # mixed dtypes
+    wide = torch.zeros((5, 2, 136), device=cuda)
+    with pytest.raises(ValueError):
+        attention_fwd(wide, wide, wide)  # head dim above 128
+
+
+# K3 against its plain version.  f32: o within 2e-5 absolute, l within 1e-5
+# relative, m within 1e-6 relative + 1e-6 absolute (the dots sum in another
+# order; m is exact where the scores are, see the grid case); bf16 o within
+# 2e-2 (p rounds to bf16 before P.V on both sides, a last-bit difference in
+# f32 p can flip one rounding).
+def _attn_inputs(rng, b, tq, tk, h, hd, dtype, cuda, grid=False):
+    def draw(t):
+        x = rng.standard_normal((b, t, h, hd))
+        if grid:  # multiples of 1/8 in [-1, 1]: every dot exact in f32
+            x = np.round(np.clip(x, -1, 1) * 8) / 8
+        return torch.as_tensor(x.astype(np.float32), device=cuda).to(dtype)
+    return draw(tq), draw(tk), draw(tk)
+
+
+def _o_close(got, want, scale=None):
+    """float32 o within 2e-5 absolute.  bf16 o (``scale`` given: the plain
+    output on |v|, elementwise sum_j p_j |v_j| / l) within 4 * 2^-8 *
+    scale: each side rounds every p_j to bf16, a flip moving it by at most
+    2^-7 of itself, and o to bf16, at most 2^-7 of |o| <= scale."""
+    err = (got.float() - want.float()).abs()
+    if scale is None:
+        return float(err.max()) <= 2e-5
+    return bool(torch.all(err <= 4 * 2 ** -8 * scale.float()))
+
+
+def _check_attn(got, want, qkv, mask=None, **dropout):
+    q, k, v = qkv
+    scale = None
+    if q.dtype == torch.bfloat16:
+        scale = plain_fused_attention(q, k, v.abs(), mask, **dropout)[0]
+    assert _o_close(got[0], want[0], scale)
+    assert torch.allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+    assert torch.allclose(got[2], want[2], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,hd,dtype",
+    [
+        (2, 257, 257, 4, 64, torch.float32),  # ViT-L tokens
+        (2, 257, 257, 4, 64, torch.bfloat16),
+        (1, 40, 1100, 2, 40, torch.float32),  # hd padded to 64, ragged key tiles
+        (1, 40, 1100, 2, 40, torch.bfloat16),
+        (3, 7, 5, 3, 16, torch.float32),  # hd padded to 32, one partial tile
+        (1, 130, 70, 2, 128, torch.float32),
+        (1, 130, 70, 2, 128, torch.bfloat16),
+    ],
+)
+def test_attention_kernel_matches_plain(cuda, b, tq, tk, h, hd, dtype):
+    rng = np.random.default_rng(tq + tk + hd)
+    q, k, v = _attn_inputs(rng, b, tq, tk, h, hd, dtype, cuda)
+    mask = torch.as_tensor(rng.random((b, tk)) > 0.3, device=cuda)
+    for msk in (None, mask, mask[0]):  # no mask, per batch, one [Tk] mask for all
+        before = attention_fwd.launches
+        got = attention_fwd(q, k, v, msk)
+        again = attention_fwd(q, k, v, msk)
+        want = plain_fused_attention(q, k, v, msk)
+        torch.cuda.synchronize()
+        assert attention_fwd.launches == before + 2
+        assert got[0].dtype == dtype and got[0].shape == (b, tq, h, hd)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))  # deterministic
+        _check_attn(got, want, (q, k, v), msk)
+
+
+def test_attention_kernel_m_exact_on_exact_scores(cuda):
+    """Where every score is exact in f32 the row max is too."""
+    q, k, v = _attn_inputs(np.random.default_rng(0), 2, 100, 90, 2, 64, torch.float32, cuda, grid=True)
+    got = attention_fwd(q, k, v)
+    want = plain_fused_attention(q, k, v)
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_masking_replaces(cuda, dtype):
+    """All-masked rows (large scores too) give the uniform average of v and
+    m = -1e9 exactly; keys of a ragged valid length are excluded."""
+    rng = np.random.default_rng(1)
+    q, k, v = _attn_inputs(rng, 2, 33, 300, 2, 64, dtype, cuda)
+    q, k = q * 40, k * 40
+    mask = torch.ones((2, 300), dtype=torch.bool, device=cuda)
+    mask[0] = False
+    mask[1, 211:] = False
+    got = attention_fwd(q, k, v, mask)
+    want = plain_fused_attention(q, k, v, mask)
+    _check_attn(got, want, (q, k, v), mask)
+    assert torch.all(got[1][0] == -1e9)
+    scale = None
+    if dtype == torch.bfloat16:
+        scale = plain_fused_attention(q, k, v.abs(), mask)[0]
+    uniform = v[0].float().mean(0)[None].expand_as(got[0][0])  # [H, hd] per query
+    assert _o_close(got[0][0], uniform, None if scale is None else scale[0])
+    cut = attention_fwd(q[1:], k[1:, :211], v[1:, :211])
+    assert _o_close(got[0][1], cut[0][0], None if scale is None else scale[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_dropout_matches_plain(cuda, dtype):
+    rng = np.random.default_rng(2)
+    q, k, v = _attn_inputs(rng, 2, 40, 300, 2, 64, dtype, cuda)
+    for seed in (7, -1399772917):
+        got = attention_fwd(q, k, v, dropout_rate=0.1, seed=seed)
+        want = plain_fused_attention(q, k, v, dropout_rate=0.1, seed=seed)
+        _check_attn(got, want, (q, k, v), dropout_rate=0.1, seed=seed)
+    undropped = attention_fwd(q, k, v)
+    assert torch.equal(got[1], undropped[1]) and torch.equal(got[2], undropped[2])
+
+
+def test_attention_kernel_reads_strided_qkv(cuda):
+    """q, k, v as views of a fused [B, T, 3, H, hd] projection."""
+    rng = np.random.default_rng(3)
+    qkv = torch.as_tensor(rng.standard_normal((2, 257, 3, 4, 64)).astype(np.float32), device=cuda)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    got = attention_fwd(q, k, v)
+    want = plain_fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    _check_attn(got, want, (q, k, v))
+    one = attention_fwd(q[1], k[1], v[1])  # unbatched [T, H, hd]
+    assert one[0].shape == (257, 4, 64) and one[1].shape == (4, 257)
+    assert torch.equal(one[0], got[0][1])
