@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodal_fusion_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, and drives the
-port's two paths through their entry points:
+port's three paths through their entry points:
 
 - the per-slide hypergraph build at the benchmark's shape (8 slides x 4096
   patches x 1024-d features + 32 TMA cores, 100/10/5/10,
@@ -15,7 +15,14 @@ port's two paths through their entry points:
   ``make_feature_extractor(batch_size=32)`` + ``extract_marker_features`` on
   synthetic uint8 cores), checked against a CPU run of the port, against the
   einsum attention on the card, and bf16 against float32; its throughput in
-  float32 and bf16 and a profile of one batch.
+  float32 and bf16 and a profile of one batch;
+- MFMF survival training at ``mfmf_config0`` width (1024-d inputs,
+  output_dim 128, 8 heads, windows of 64 cases) through
+  ``SurvivalTrainer.train_fold`` on 160 in-memory cases, with the device
+  tables and with host windows, checked against a CPU run of the port's
+  window step; its throughput and a profile of one window.  K4 (the
+  attention backward) is held against its plain version at MFMF's three
+  block shapes first.
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
@@ -29,6 +36,7 @@ events and stand beside the card's name and power limit.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -57,6 +65,16 @@ LARGE_NODES = 4096  # graph nodes at which the build's node KNN switches to K2
 VIT_BATCH, VIT_DEPTH, VIT_HEADS, VIT_TOKENS, VIT_HEAD_DIM = 32, 24, 16, 257, 64
 VIT_WINDOW = 96  # patches per timed window (3 batches)
 VIT_WINDOWS = 5
+
+# MFMF survival training (experiments/2.related_works/mfmf_config0.sh):
+# 1024-d inputs, output_dim 128, 8 heads of 16, the default three blocks,
+# Adam lr 1e-4 with coupled L2 1e-5, the plateau scheduler, windows of 64
+# cases.  160 in-memory cases, 5 folds: 128 train, 16 val, 16 test.
+MFMF_CASES, MFMF_FOLDS, MFMF_EPOCHS, MFMF_BATCH = 160, 5, 2, 64
+MFMF_DIM, MFMF_HEADS = 128, 8
+MFMF_WSI = (2048, 4096)  # patches per WSI bag: one bucket of 4096
+MFMF_TMA = (9, 16)  # patches per TMA marker: one bucket of 64
+MFMF_TIMED_WINDOWS = 5
 
 
 def _card_line() -> str:
@@ -138,6 +156,92 @@ def _attention_bound_ms(b, h, t_q, t_k, hd, itemsize):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def _attention_bwd_work(b, h, t_q, t_k, hd, itemsize, valid_keys=None):
+    """(operations, bytes) of the recompute backward: 10 * H * hd * Tq
+    FLOPs per key a case keeps (the five products s, dp, dq, dk, dv), and
+    q, k, v, do read and dq, dk, dv written at the input width, m, l and
+    dsum read in float32."""
+    keys = b * t_k if valid_keys is None else valid_keys
+    ops = 10 * h * hd * t_q * keys
+    nbytes = b * h * hd * (3 * t_q + 4 * t_k) * itemsize + 3 * b * h * t_q * 4
+    return ops, nbytes
+
+
+def _bound_ms(ops, nbytes, itemsize):
+    """The larger of the operations at the f32 non-tensor (or bf16 tensor)
+    peak and the bytes at the HBM rate, in ms, and which one it is."""
+    t_ops = ops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
+    t_bytes = nbytes / PEAK_BYTES_PER_S
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def _device_gaps(trace_path):
+    """Device timeline of a profiler chrome trace: (span from the first
+    device op's start to the last one's end, busy time as the union of the
+    ops' intervals, the gaps between them as (us, op before, op after)
+    sorted largest first), all in microseconds."""
+    with open(trace_path) as f:
+        events = [e for e in json.load(f).get("traceEvents", [])
+                  if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not events:
+        return 0.0, 0.0, []
+    events.sort(key=lambda e: float(e["ts"]))
+    busy, gaps = 0.0, []
+    start, end, last = float(events[0]["ts"]), float(events[0]["ts"]), events[0]
+    for e in events:
+        t0, t1 = float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0.0))
+        if t0 > end:
+            gaps.append((t0 - end, last["name"], e["name"]))
+            busy += end - start
+            start = t0
+        if t1 >= end:
+            end, last = t1, e
+    busy += end - start
+    span = end - float(events[0]["ts"])
+    return span, busy, sorted(gaps, key=lambda g: g[0], reverse=True)
+
+
+class _CaseTable:
+    """The dataset interface ``SurvivalTrainer.train_fold`` reads
+    (``case_ids``, ``labels``, ``get_case``) over cases held in host
+    memory: the card's machine has no h5py or pandas to read the HDF5
+    layout that ``data.multimodal.MultimodalDataset`` reads."""
+
+    has_survival_time = False
+
+    def __init__(self, raws, labels):
+        self.case_ids = [f"case_{i:03d}" for i in range(len(raws))]
+        self._cases = dict(zip(self.case_ids, zip(raws, (int(x) for x in labels))))
+        self.labels = np.asarray(labels, np.int64)
+
+    def __len__(self):
+        return len(self.case_ids)
+
+    def get_case(self, case_id):
+        return self._cases[case_id]
+
+
+def _mfmf_cases(rng, markers, tabular_dims):
+    """``MFMF_CASES`` raw cases as ``MultimodalDataset.get_case`` returns
+    them: a WSI bag of 2048-4096 patches x 1024 and its reconstruction
+    (the bag plus small noise), each marker's 9-16 TMA patches, and each
+    tabular group's [1, D] values with a 0/1 mask; balanced labels."""
+    raws = []
+    for _ in range(MFMF_CASES):
+        n = int(rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1))
+        wsi = rng.standard_normal((n, DIM), dtype=np.float32)
+        raw = {"wsi=features": wsi,
+               "wsi=reconstructed_features": wsi + 0.05 * rng.standard_normal((n, DIM), dtype=np.float32)}
+        for mk in markers:
+            n_tma = int(rng.integers(MFMF_TMA[0], MFMF_TMA[1] + 1))
+            raw[f"tma={mk}=features"] = rng.standard_normal((n_tma, DIM), dtype=np.float32)
+        for group, dim in tabular_dims.items():
+            raw[f"{group}=val"] = rng.standard_normal((1, dim), dtype=np.float32)
+            raw[f"{group}=mask"] = (rng.random((1, dim)) > 0.2).astype(np.float32)
+        raws.append(raw)
+    return raws, rng.permutation(np.arange(MFMF_CASES) % 2)
+
+
 def _vit_dense_flops(n_images, dim=1024, depth=VIT_DEPTH, tokens=VIT_TOKENS, patch=16):
     """FLOPs of ViT-L/16's Linear layers for ``n_images`` (qkv, proj, fc1,
     fc2 per token and block, plus the patch embedding); attention is K3's."""
@@ -183,6 +287,11 @@ def _rel_l2(a, b) -> float:
     return float((np.linalg.norm(a - b, axis=1) / np.linalg.norm(b, axis=1)).max())
 
 
+def _rel_l2_all(a, b) -> float:
+    """Relative L2 distance of tensor ``a`` from ``b`` over all elements."""
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp_min(1e-30))
+
+
 def _exact_sq_dists(x64, idx, chunk: int = 512):
     """[N, k] float64 squared distances from each row of ``x64`` to the rows
     ``idx`` lists for it."""
@@ -219,6 +328,9 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    from multimodal_fusion_tpu_torch.channels import TMA_MARKERS, parse_channels
+    from multimodal_fusion_tpu_torch.config import Configs, ExperimentConfig, ModelConfig
+    from multimodal_fusion_tpu_torch.data.splits import create_k_fold_splits
     from multimodal_fusion_tpu_torch.data.tma_extraction import (
         extract_marker_features,
         make_feature_extractor,
@@ -226,11 +338,20 @@ def main() -> int:
     )
     from multimodal_fusion_tpu_torch.device import resolve_device
     from multimodal_fusion_tpu_torch.hypergraph import build
-    from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide, make_clustered_dataset
+    from multimodal_fusion_tpu_torch.io.fixtures import (
+        TABULAR_DIMS,
+        clustered_slide,
+        make_clustered_dataset,
+    )
+    from multimodal_fusion_tpu_torch.models.factory import ModelFactory
+    from multimodal_fusion_tpu_torch.models.mfmf import DEFAULT_FUSION_SEQUENCE
     from multimodal_fusion_tpu_torch.models.vit import vit_large_16
     from multimodal_fusion_tpu_torch.ops import _cuda
-    from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention
-    from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
+    from multimodal_fusion_tpu_torch.ops.attention import (
+        plain_fused_attention,
+        plain_fused_attention_bwd,
+    )
+    from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd, attention_fwd
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
     from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -238,10 +359,13 @@ def main() -> int:
         similarity_rect,
         similarity_rect_plain,
     )
+    from multimodal_fusion_tpu_torch.train.optim import make_optimizer
+    from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
 
     dev = resolve_device("cuda")
     s = Smoke(torch)
-    counters = {"similarity": similarity_rect, "knn": knn, "attention": attention_fwd}
+    counters = {"similarity": similarity_rect, "knn": knn, "attention": attention_fwd,
+                "attention_bwd": attention_bwd}
     main_path_launches = {name: 0 for name in counters}
     main_path_ms_per_slide: list = []  # phase 4's median window, read by phase 7
 
@@ -824,6 +948,353 @@ def main() -> int:
             for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
                 s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
+    # ---------------------------------------------------------------- 11
+    def attention_bwd_phase():
+        """K4 against its plain version, both fed the plain forward's m, l
+        and dsum: relative L2 <= 1e-5 per output in float32 (sums in other
+        orders), <= 1e-2 in bf16 (ds and p round to bf16 before the second
+        products on both sides, where a last-bit difference in float32 can
+        flip a rounding); two launches bit-identical.  K3 against its plain
+        version at MFMF's three shapes as in phase 8."""
+        import torch.nn.functional as F
+
+        rng = np.random.default_rng(11)
+        b, h, hd = MFMF_BATCH, MFMF_HEADS, MFMF_DIM // MFMF_HEADS
+
+        def randn(shape, dtype=torch.float32):
+            return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev).to(dtype)
+
+        def check_k4(label, q, k, v, mask, **drop):
+            o, m, l = plain_fused_attention(q, k, v, mask, **drop)
+            do = randn(tuple(q.shape), q.dtype)
+            dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            args = (q, k, v, do, m, l, dsum, mask)
+            got = attention_bwd(*args, **drop)
+            again = attention_bwd(*args, **drop)
+            want = plain_fused_attention_bwd(*args, **drop)
+            torch.cuda.synchronize()
+            s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"K4 {label}: two launches bit-identical")
+            errs = [_rel_l2_all(g, w) for g, w in zip(got, want)]
+            bar = 1e-5 if q.dtype == torch.float32 else 1e-2
+            s.check(max(errs) <= bar, f"K4 {label}: relative L2 dq {errs[0]:.2e}, dk {errs[1]:.2e}, "
+                                      f"dv {errs[2]:.2e} <= {bar:g}")
+            abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+            return got, args, abs_err
+
+        def check_k3(label, q, k, v, mask):
+            got = attention_fwd(q, k, v, mask)
+            again = attention_fwd(q, k, v, mask)
+            want = plain_fused_attention(q, k, v, mask)
+            torch.cuda.synchronize()
+            s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"K3 {label}: two launches bit-identical")
+            o_err = float((got[0] - want[0]).abs().max())
+            m_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1.0)).max())
+            l_err = float(((got[2] - want[2]).abs() / want[2]).max())
+            s.check(o_err <= 2e-5 and m_err <= 1e-6 and l_err <= 1e-5,
+                    f"K3 {label}: o max abs err {o_err:.2e} <= 2e-05, m within {m_err:.2e} <= "
+                    f"1e-6 of max(|m|, 1), l rel err {l_err:.2e} <= 1e-5")
+
+        def sdpa_ms(q, k, v, do, mask):
+            """(forward ms, backward ms: autograd through SDPA less its
+            forward) of ``scaled_dot_product_attention`` on the same inputs,
+            or (None, None) when no SDPA backend takes them."""
+            qt, kt, vt = (x.detach().transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+            go = do.transpose(1, 2).contiguous()
+            am = None if mask is None else mask[:, None, None, :]
+
+            def fwd():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am)
+
+            try:
+                fwd_ms = s.cuda_ms(fwd)
+                both_ms = s.cuda_ms(lambda: torch.autograd.grad(fwd(), (qt, kt, vt), go))
+            except RuntimeError as e:
+                s.log(f"  scaled_dot_product_attention refused these inputs: {e}")
+                return None, None
+            return fwd_ms, both_ms - fwd_ms
+
+        def timed(label, args, valid_keys=None, k3=False):
+            q, k, v, do, m, l, dsum, mask = args
+            bq, t_q, heads, d = q.shape
+            t_k = k.shape[1]
+            ms = s.cuda_ms(lambda: attention_bwd(*args))
+            plain_ms = s.cuda_ms(lambda: plain_fused_attention_bwd(*args), iters=5)
+            fwd_lib, bwd_lib = sdpa_ms(q, k, v, do, mask)
+            ops, nbytes = _attention_bwd_work(bq, heads, t_q, t_k, d, q.element_size(), valid_keys)
+            bound, by = _bound_ms(ops, nbytes, q.element_size())
+            lib = "not measured" if bwd_lib is None else f"{bwd_lib:.4f} ms"
+            s.timed(f"K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
+                    f"{lib}, bound {bound:.4f} ms ({by}; {ops / 1e9:.3f} GFLOP, "
+                    f"{nbytes / 1e6:.1f} MB)")
+            if k3:
+                k3_ms = s.cuda_ms(lambda: attention_fwd(q, k, v, mask))
+                k3_plain = s.cuda_ms(lambda: plain_fused_attention(q, k, v, mask), iters=5)
+                kv = t_k if valid_keys is None else valid_keys / bq
+                k3_bound, k3_by = _attention_bound_ms(bq, heads, t_q, kv, d, q.element_size())
+                lib3 = "not measured" if fwd_lib is None else f"{fwd_lib:.4f} ms"
+                s.timed(f"K3 {label}: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, SDPA "
+                        f"{lib3}, bound {k3_bound:.4f} ms ({k3_by})")
+            return ms, plain_ms, bwd_lib, ops, nbytes
+
+        # (a) MFMF's three blocks at mfmf_config0 width, 64 cases: 5 tabular
+        # tokens against 8 markers' 64-row buckets (9-16 valid each), against
+        # the 4096-bucket WSI bag (2048-4096 valid), and the reconstructed
+        # bag's 4096 tokens against the 5 result tokens (no key mask)
+        markers = torch.as_tensor(np.concatenate(
+            [np.arange(64)[None] < rng.integers(MFMF_TMA[0], MFMF_TMA[1] + 1, (b, 1))
+             for _ in range(8)], axis=1), device=dev)
+        wsi = torch.as_tensor(np.arange(4096)[None] < rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1, (b, 1)),
+                              device=dev)
+        blocks = [("block 1 other->tma [64x8, 5x512, 16]", 5, 512, markers),
+                  ("block 2 result->wsi [64x8, 5x4096, 16]", 5, 4096, wsi),
+                  ("block 3 reconstruct->result [64x8, 4096x5, 16]", 4096, 5, None)]
+        window = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+        for label, t_q, t_k, mask in blocks:
+            q, k, v = randn((b, t_q, h, hd)), randn((b, t_k, h, hd)), randn((b, t_k, h, hd))
+            check_k3(label, q, k, v, mask)
+            _, args, err = check_k4(label, q, k, v, mask)
+            valid = None if mask is None else int(mask.sum())
+            ms, plain_ms, lib_ms, ops, nbytes = timed(label, args, valid, k3=True)
+            window["ms"] += ms
+            window["plain_ms"] += plain_ms
+            window["library_ms"] = None if lib_ms is None or window["library_ms"] is None \
+                else window["library_ms"] + lib_ms
+            window["ops"] += ops
+            window["bytes"] += nbytes
+            window["err"] = max(window["err"], err)
+        bound, by = _bound_ms(window["ops"], window["bytes"], 4)
+        s.timed(f"K4, one MFMF train window (the three blocks): kernel {window['ms']:.4f} ms, "
+                f"plain {window['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+        s.kernels["attention_bwd"] = {
+            "name": "attention_bwd", "route": "cuda",
+            "source": "multimodal_fusion_tpu_torch/csrc/attention_bwd.cu",
+            "replaces": "multimodal_fusion_tpu/ops/pallas_attention.py:373",
+            "max_abs_err": window["err"], "ms": window["ms"], "plain_ms": window["plain_ms"],
+            "bound_ms": bound, "bound_by": by, "library_ms": window["library_ms"],
+        }
+        # (b) the bench's gradient shape (bench.py:765-785), f32 and bf16
+        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+            q, k, v = (randn((1, 4096, 8, 64), dtype) for _ in range(3))
+            _, args, _ = check_k4(f"bag [1x8, 4096, 64] {name}", q, k, v, None)
+            timed(f"bag [1x8, 4096, 64] {name}", args)
+        # (c) dropout 0.1 with one seed per case, at block 2's shape
+        seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=dev)
+        q, k, v = randn((b, 5, h, hd)), randn((b, 4096, h, hd)), randn((b, 4096, h, hd))
+        got_f = attention_fwd(q, k, v, wsi, dropout_rate=0.1, seed=seeds)
+        want_f = plain_fused_attention(q, k, v, wsi, dropout_rate=0.1, seed=seeds)
+        o_err = float((got_f[0] - want_f[0]).abs().max())
+        s.check(o_err <= 2e-5, f"K3 block 2, dropout 0.1, per-case seeds: o max abs err "
+                               f"{o_err:.2e} <= 2e-05")
+        check_k4("block 2, dropout 0.1, per-case seeds", q, k, v, wsi, dropout_rate=0.1, seed=seeds)
+        # (d) an all-masked bag: zero dq and dk, dv through the uniform p
+        mask = torch.ones((2, 4096), dtype=torch.bool, device=dev)
+        mask[1] = False
+        q, k, v = randn((2, 5, h, hd)), randn((2, 4096, h, hd)), randn((2, 4096, h, hd))
+        got, args, _ = check_k4("[2x8, 5x4096, 16], bag 1 all masked", q, k, v, mask)
+        uniform = args[3][1].sum(0, keepdim=True).expand(4096, -1, -1) / 4096  # sum_q do / Tk
+        u_err = float((got[2][1] - uniform).abs().max())
+        s.check(not got[0][1].any() and not got[1][1].any() and u_err <= 1e-6,
+                f"K4 all-masked bag: dq = dk = 0, dv = sum_q do / Tk within {u_err:.2e} <= 1e-6")
+
+    # ---------------------------------------------------------------- 12
+    mfmf = {}  # trainer, model, tables and timing window, read by phase 13
+
+    def mfmf_phase():
+        """The slice's main path: MFMF survival training at mfmf_config0
+        width through ``SurvivalTrainer.train_fold``."""
+        chans = parse_channels(["wsi", "tma"] + [f"{g}_mask" for g in TABULAR_DIMS])
+        t0 = time.perf_counter()
+        raws, labels = _mfmf_cases(np.random.default_rng(12), TMA_MARKERS, TABULAR_DIMS)
+        ds = _CaseTable(raws, labels)
+        s.log(f"  {MFMF_CASES} in-memory cases ({len(chans)} channels) drawn in "
+              f"{time.perf_counter() - t0:.1f} s (host)")
+        mc = ModelConfig(model_type="mfmf", n_classes=2, input_dim=DIM, model_size="64*32",
+                         dropout=0.25, inst_number=8, base_weight=0.9, subtyping=True,
+                         output_dim=MFMF_DIM, channels_used_in_model=chans,
+                         channel_input_dims={f"{g}=val": d for g, d in TABULAR_DIMS.items()},
+                         fusion_blocks_sequence=DEFAULT_FUSION_SEQUENCE)
+        mc.extra["attention_num_heads"] = MFMF_HEADS
+        ec = ExperimentConfig(exp_name="mfmf_config0", seed=5678, k_folds=MFMF_FOLDS,
+                              max_epochs=MFMF_EPOCHS, batch_size=MFMF_BATCH, lr=1e-4,
+                              optimizer="adam", weight_decay=1e-5, scheduler="plateau",
+                              scheduler_params={"mode": "min", "patience": 15, "factor": 0.5},
+                              device_data=True)
+        split = create_k_fold_splits(ds.labels, MFMF_FOLDS, ec.seed)[0]
+        sizes = (len(split.train_idx), len(split.val_idx), len(split.test_idx))
+        s.check(sizes == (128, 16, 16), f"fold 0: {sizes} train/val/test cases")
+        n_train = MFMF_EPOCHS * -(-sizes[0] // MFMF_BATCH)
+        n_eval = (MFMF_EPOCHS + 1) * -(-sizes[1] // 16) + -(-sizes[2] // 16)
+
+        td = Path(tempfile.mkdtemp(prefix="mfmf_"))
+        mfmf["dir"] = td
+        summaries = {}
+        for device_data in (True, False):
+            ec.device_data = device_data
+            tr = SurvivalTrainer(Configs(ec, mc), td / f"device_data_{device_data}", device=dev)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summaries[device_data] = tr.train_fold(ds, split, 0)
+            wall = time.perf_counter() - t0
+            add_main_path_counts()
+            s.timed(f"train_fold, device_data={device_data}: {MFMF_EPOCHS} epochs of "
+                    f"{sizes[0]} cases + evaluation in {wall:.2f} s"
+                    + (" (the model's first CUDA use included)" if device_data else ""))
+            s.check(attention_bwd.launches == 3 * n_train,
+                    f"device_data={device_data}: K4 launched 3 times per train window "
+                    f"({attention_bwd.launches} == 3 x {n_train})")
+            s.check(attention_fwd.launches == 3 * (n_train + n_eval),
+                    f"device_data={device_data}: K3 launched 3 times per train and eval window "
+                    f"({attention_fwd.launches} == 3 x ({n_train} + {n_eval}))")
+            out = td / f"device_data_{device_data}"
+            s.check(all((out / n).exists() for n in ("splits_0.csv", "fold_0_epochs.csv",
+                                                     "fold_0_summary.json")),
+                    f"device_data={device_data}: splits_0.csv, fold_0_epochs.csv and "
+                    "fold_0_summary.json written")
+            hist = summaries[device_data]["history"]
+            probs = [p["prob"] for p in json.loads((out / "fold_0_summary.json").read_text())
+                     ["patient_results"].values()]
+            s.check(all(np.isfinite([h_["train_loss"], h_["val_loss"]]).all() for h_ in hist)
+                    and np.isfinite(probs).all() and np.asarray(probs).shape == (sizes[2], 2),
+                    f"device_data={device_data}: losses finite, {len(probs)} test probabilities "
+                    "finite")
+            s.log("  history: " + "; ".join(
+                f"epoch {h_['epoch']}: train {h_['train_loss']:.6f} val {h_['val_loss']:.6f} "
+                f"auc {h_['val_auc']:.4f}" for h_ in hist))
+        a = summaries[True]["history"][0]["train_loss"]
+        b_ = summaries[False]["history"][0]["train_loss"]
+        s.check(abs(a - b_) <= 1e-6 * abs(a), f"first-epoch train loss, device_data True vs False: "
+                                              f"{a!r} vs {b_!r} (within 1e-6 relative)")
+
+        # one window's gradients on the card against a CPU run of the port
+        # from the same weights and window: the trainer's own step with a
+        # zero learning rate, which leaves the gradients on the parameters
+        ec.device_data = True
+        tr = SurvivalTrainer(Configs(ec, mc), td / "timing", device=dev)
+        all_idx = np.concatenate([split.train_idx, split.val_idx, split.test_idx]).astype(np.int64)
+        tables, row_of = tr._device_tables(ds, all_idx)
+        rows = torch.as_tensor([row_of[int(i)] for i in split.train_idx], dtype=torch.int64)
+        window = tr._gather_window(tables, rows[:MFMF_BATCH].to(dev))
+        card = tr._build_model(0)
+        host = ModelFactory.create_model(mc, device="cpu")
+        host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+        cpu_tr = SurvivalTrainer(Configs(ec, mc), td / "cpu", device="cpu")
+        cpu_window = {"channels": {k: t.cpu() for k, t in window["channels"].items()},
+                      "masks": {k: t.cpu() for k, t in window["masks"].items()},
+                      "label": window["label"].cpu()}
+        loss_card = float(tr._train_step(card, torch.optim.SGD(card.parameters(), lr=0.0), window,
+                                         torch.Generator(device=dev)))
+        t0 = time.perf_counter()
+        loss_cpu = float(cpu_tr._train_step(host, torch.optim.SGD(host.parameters(), lr=0.0),
+                                            cpu_window, torch.Generator()))
+        s.log(f"  CPU run of one {MFMF_BATCH}-case window: {time.perf_counter() - t0:.1f} s (host)")
+        cpu_grads = {n: p.grad for n, p in host.named_parameters()}
+        card_grads = {n: p.grad.cpu() for n, p in card.named_parameters()}
+        # a k_proj bias shifts each query's scores by one constant, which
+        # the softmax removes: its gradient is 0 in exact arithmetic and
+        # rounding noise on both sides, so it is held against the norm of
+        # its block's k_proj weight gradient instead of its own
+        errs = {}
+        for n, g in card_grads.items():
+            scale = cpu_grads[n.replace("k_proj.bias", "k_proj.weight")].norm()
+            errs[n] = float((g - cpu_grads[n]).norm() / scale.clamp_min(1e-30))
+        worst = max(errs, key=errs.get)
+        s.log("  largest gradient errors: " + ", ".join(
+            f"{n} {errs[n]:.2e}" for n in sorted(errs, key=errs.get, reverse=True)[:4]))
+        s.check(errs[worst] <= 1e-4, f"one window's gradients, card vs CPU: worst relative L2 "
+                                     f"{errs[worst]:.2e} <= 1e-4 over {len(errs)} tensors ({worst}; "
+                                     f"the k_proj biases against their weights' gradient norm)")
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        s.check(rel <= 1e-5, f"one window's loss, card {loss_card!r} vs CPU {loss_cpu!r}: relative "
+                             f"{rel:.2e} <= 1e-5")
+        del host, cpu_window, cpu_grads
+
+        # throughput on the device path: the median of timed 64-case windows
+        # (row gather + the trainer's step) after a warm-up
+        model = tr._build_model(0)
+        opt = make_optimizer(ec.optimizer, ec.weight_decay, model.parameters(), ec.lr)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def device_window(i):
+            idx = rows[(i % 2) * MFMF_BATCH:(i % 2 + 1) * MFMF_BATCH].to(dev)
+            return tr._train_step(model, opt, tr._gather_window(tables, idx), gen)
+
+        device_window(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        for i in range(MFMF_TIMED_WINDOWS):
+            t0 = time.perf_counter()
+            device_window(i + 1)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rates = sorted(MFMF_BATCH / w for w in walls)
+        mfmf.update(tr=tr, device_window=device_window, median_ms=float(np.median(walls)) * 1e3)
+        s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+        s.timed(f"MFMF training, device path: median {MFMF_BATCH / float(np.median(walls)):.1f} "
+                f"cases/s over {MFMF_TIMED_WINDOWS} windows of {MFMF_BATCH} (min {rates[0]:.1f}, "
+                f"max {rates[-1]:.1f}); peak device memory "
+                f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with the tables")
+        # the host path: each window read, padded and uploaded (prefetched
+        # on a thread, as train_fold runs it), 3 windows end to end
+        order = np.concatenate([split.train_idx, split.train_idx[:MFMF_BATCH]])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _, w in tr._windows_prefetched(ds, order, MFMF_BATCH):
+            tr._train_step(model, opt, tr._to_device(w), gen)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        s.timed(f"MFMF training, host path: {len(order) / wall:.1f} cases/s over "
+                f"{len(order) // MFMF_BATCH} windows of {MFMF_BATCH} ({wall:.3f} s)")
+        # evaluation on the device path: all 160 cases in windows of 16
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = tr._evaluate(ds, all_idx, model, tables, row_of)
+            walls.append(time.perf_counter() - t0)
+        s.check(np.isfinite(res["probs"]).all(), "evaluation probabilities finite")
+        s.timed(f"MFMF evaluation, device path: {MFMF_CASES / float(np.median(walls[1:])):.1f} "
+                f"cases/s (median of 2 runs after a warm-up, windows of 16)")
+
+    # ---------------------------------------------------------------- 13
+    def mfmf_profile_phase():
+        from torch.profiler import ProfilerActivity, profile
+
+        step = mfmf["device_window"]
+        step(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = _device_events(prof)
+        if not events:
+            s.log("  profiler saw no device time: device busy share not measured")
+            return
+        busy_ms = sum(us for _, us in events) / 1e3
+        k3_ms = sum(us for e, us in events if "attn_" in e.key and "attn_bwd" not in e.key) / 1e3
+        k4_ms = sum(us for e, us in events if "attn_bwd" in e.key) / 1e3
+        s.timed(f"one {MFMF_BATCH}-case training window under torch.profiler: wall {wall_ms:.2f} ms, "
+                f"device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% of the profiled "
+                f"wall), K3 {k3_ms:.3f} ms, K4 {k4_ms:.3f} ms, "
+                f"{sum(e.count for e, _ in events)} device ops")
+        s.timed(f"estimate: profiled device time over phase 12's median {mfmf['median_ms']:.2f} ms "
+                f"per window = {100 * busy_ms / mfmf['median_ms']:.1f}% device busy (two runs)")
+        for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:10]:
+            s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        trace = mfmf["dir"] / "window_trace.json"
+        prof.export_chrome_trace(str(trace))
+        span, busy, gaps = _device_gaps(trace)
+        if span > 0:
+            s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
+                    f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
+                    f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
+            for us, before, after in gaps[:5]:
+                s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -834,6 +1305,11 @@ def main() -> int:
     s.phase("8. K3 attention kernel vs plain", attention_phase)
     s.phase("9. main path: ViT-L/16 TMA feature extraction", vit_phase)
     s.phase("10. where one ViT-L/16 batch's time goes", vit_profile_phase)
+    s.phase("11. K4 attention backward kernel vs plain", attention_bwd_phase)
+    s.phase("12. main path: MFMF survival training", mfmf_phase)
+    s.phase("13. where one MFMF training window's time goes", mfmf_profile_phase)
+    if "dir" in mfmf:
+        shutil.rmtree(mfmf["dir"], ignore_errors=True)
 
     for name, launches in main_path_launches.items():
         if name in s.kernels:

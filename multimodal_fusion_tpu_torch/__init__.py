@@ -1,10 +1,13 @@
 """PyTorch / CUDA port of ``multimodal_fusion_tpu`` for NVIDIA Hopper (H100).
 
 The JAX package stays the reference; this package imports ``torch`` and
-nothing of JAX or of the JAX package.  This slice covers the per-slide
-hypergraph build (``hypergraph.build``) in its full-statistics mode, with
-hand-written CUDA kernels for the combined similarity
-(``ops.similarity_kernel``) and the running-top-k KNN (``ops.knn_kernel``).
+nothing of JAX or of the JAX package.  It covers the per-slide hypergraph
+build (``hypergraph.build``) in its full-statistics mode, ViT-L/16 TMA
+feature extraction (``data.tma_extraction``) and MFMF survival training
+(``train.survival``), with hand-written CUDA kernels for the combined
+similarity (``ops.similarity_kernel``), the running-top-k KNN
+(``ops.knn_kernel``) and the fused attention forward and backward
+(``ops.attention_kernel``).
 """
 
 from multimodal_fusion_tpu_torch.device import resolve_device, strict_fp32

@@ -16,8 +16,10 @@
 //     stored separately as float32 [B, H, Tq], never as a log-sum-exp;
 //   - dropout (rate > 0): keep iff fmix32((h*Tq + q)*Tk + k) * 0x9E3779B9 +
 //     seed) >= threshold in uint32 arithmetic, at the absolute (head, q, k)
-//     index (the same for every batch element, as the JAX kernel under vmap);
-//     applied to the unnormalised p after l is updated;
+//     index, applied to the unnormalised p after l is updated.  The seed is
+//     one per batch element (the JAX kernel under vmap with per-case keys)
+//     or one shared by the batch (vmap with one unbatched key: every batch
+//     element then draws the same mask);
 //   - deterministic: every sum runs in a fixed order, no atomics.
 //
 // Layout: q, k, v are read in the caller's [B, T, H, hd] layout through
@@ -48,20 +50,18 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
-constexpr int BQ = 64;    // query rows per block
-constexpr int BKV = 64;   // keys per shared-memory tile
-constexpr int NT = 128;   // threads per block (4 warps)
-constexpr float kNegInf = -1e9f;     // ops.masked.NEG_INF
-constexpr float kInitMax = -1e30f;   // running-max start
-constexpr int8_t kValid = 0, kMasked = 1, kOutside = 2;
+using namespace mmf_attn;
 
 struct Params {
   const void* q;
   const void* k;
   const void* v;
   const uint8_t* mask;  // [B or 1, Tk], 1 = keep; null = no mask
+  const int* seeds;     // [B] per-case dropout seeds; null = ``seed`` for all
   void* o;
   float* m;
   float* l;
@@ -71,33 +71,6 @@ struct Params {
   uint32_t threshold, seed;
   int dropout;
 };
-
-// pallas_attention._keep_mask at one absolute (head, q, k) index
-__device__ __forceinline__ bool keep(const Params& p, uint32_t h, uint32_t q, uint32_t k) {
-  uint32_t lin = (h * static_cast<uint32_t>(p.Tq) + q) * static_cast<uint32_t>(p.Tk) + k;
-  uint32_t z = lin * 0x9E3779B9u + p.seed;
-  z ^= z >> 16;
-  z *= 0x85EBCA6Bu;
-  z ^= z >> 13;
-  z *= 0xC2B2AE35u;
-  z ^= z >> 16;
-  return z >= p.threshold;
-}
-
-// column states of one key tile: valid, user-masked, or past Tk
-__device__ __forceinline__ void load_colstate(const Params& p, int b, int k0, int8_t* colstate) {
-  const int tid = threadIdx.x;
-  if (tid < BKV) {
-    const int gk = k0 + tid;
-    int8_t st = kValid;
-    if (gk >= p.Tk) {
-      st = kOutside;
-    } else if (p.mask != nullptr && p.mask[b * p.mask_sb + gk] == 0) {
-      st = kMasked;
-    }
-    colstate[tid] = st;
-  }
-}
 
 __device__ __forceinline__ float apply_colstate(float s, int8_t st) {
   return st == kOutside ? -INFINITY : (st == kMasked ? kNegInf : s);
@@ -124,6 +97,7 @@ __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.y * BQ;
+  const uint32_t seed = case_seed(p.seeds, p.seed, b);
   const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
   const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
   const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -153,7 +127,7 @@ __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
       Ks[r * LD + d] = in ? kg[gk * p.k_st + d] : 0.f;
       Vs[r * LD + d] = in ? vg[gk * p.v_st + d] : 0.f;
     }
-    load_colstate(p, b, k0, colstate);
+    load_colstate(p.mask, p.mask_sb, p.Tk, b, k0, colstate);
     __syncthreads();
 
     float s[4][8];
@@ -211,7 +185,7 @@ __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
 #pragma unroll
         for (int j = 0; j < 8; ++j) {
           const uint32_t gk = k0 + tx + 8 * j;
-          s[i][j] = keep(p, h, gq, gk) ? s[i][j] * p.keep_scale : 0.f;
+          s[i][j] = keep(seed, p.threshold, p.Tq, p.Tk, h, gq, gk) ? s[i][j] * p.keep_scale : 0.f;
         }
       }
 #pragma unroll
@@ -321,6 +295,7 @@ __global__ void __launch_bounds__(NT) attn_bf16_kernel(const Params p) {
   const int b = bh / p.H;
   const int h = bh - b * p.H;
   const int q0 = blockIdx.y * BQ;
+  const uint32_t seed = case_seed(p.seeds, p.seed, b);
   const __nv_bfloat16* qg = static_cast<const __nv_bfloat16*>(p.q) + b * p.q_sb + h * p.q_sh;
   const __nv_bfloat16* kg = static_cast<const __nv_bfloat16*>(p.k) + b * p.k_sb + h * p.k_sh;
   const __nv_bfloat16* vg = static_cast<const __nv_bfloat16*>(p.v) + b * p.v_sb + h * p.v_sh;
@@ -359,7 +334,7 @@ __global__ void __launch_bounds__(NT) attn_bf16_kernel(const Params p) {
       Ks[r * LDH + d] = in ? kg[gk * p.k_st + d] : zero;
       Vt[d * LDV + r] = in ? vg[gk * p.v_st + d] : zero;
     }
-    load_colstate(p, b, k0, colstate);
+    load_colstate(p.mask, p.mask_sb, p.Tk, b, k0, colstate);
     __syncthreads();
 
     float sc[NS][4];
@@ -412,7 +387,7 @@ __global__ void __launch_bounds__(NT) attn_bf16_kernel(const Params p) {
         for (int e = 0; e < 4; ++e) {
           const uint32_t gq = q0 + r0 + 8 * (e >> 1);
           const uint32_t gk = k0 + n * 8 + 2 * t + (e & 1);
-          sc[n][e] = keep(p, h, gq, gk) ? sc[n][e] * p.keep_scale : 0.f;
+          sc[n][e] = keep(seed, p.threshold, p.Tq, p.Tk, h, gq, gk) ? sc[n][e] * p.keep_scale : 0.f;
         }
     }
 #pragma unroll
@@ -468,11 +443,8 @@ constexpr size_t bf16_smem() {
 
 template <typename Kernel>
 int launch(Kernel kernel, size_t smem, const Params& p, void* stream) {
-  if (smem > 48 * 1024) {  // dynamic shared memory above 48 KB needs the opt-in
-    const cudaError_t err =
-        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(p.B * p.H, (p.Tq + BQ - 1) / BQ);
   kernel<<<grid, NT, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
@@ -481,11 +453,12 @@ int launch(Kernel kernel, size_t smem, const Params& p, void* stream) {
 }  // namespace
 
 // o, m, l for q [B, Tq, H, hd] and k, v [B, Tk, H, hd] given by strides (in
-// elements; the head dim contiguous).  is_bf16 selects bf16 inputs and
+// elements; the head dim contiguous).  seeds: int32 [B] per-case dropout
+// seeds, or null to use ``seed`` for every batch element.  is_bf16 selects bf16 inputs and
 // output (else float32).  hd <= 128.  Returns cudaGetLastError() after the
 // launch (or the error of the shared-memory opt-in).
 extern "C" int mmf_attention_fwd(int is_bf16, const void* q, const void* k, const void* v,
-                                 const void* mask, void* o, void* m, void* l, int B, int H,
+                                 const void* mask, const void* seeds, void* o, void* m, void* l, int B, int H,
                                  int Tq, int Tk, int hd, long long q_sb, long long q_st,
                                  long long q_sh, long long k_sb, long long k_st, long long k_sh,
                                  long long v_sb, long long v_st, long long v_sh, long long mask_sb,
@@ -496,6 +469,7 @@ extern "C" int mmf_attention_fwd(int is_bf16, const void* q, const void* k, cons
   p.k = k;
   p.v = v;
   p.mask = static_cast<const uint8_t*>(mask);
+  p.seeds = static_cast<const int*>(seeds);
   p.o = o;
   p.m = static_cast<float*>(m);
   p.l = static_cast<float*>(l);

@@ -1,0 +1,65 @@
+"""Model factory (counterpart of ``multimodal_fusion_tpu.models.factory``).
+
+The registry carries the JAX package's keys.  ``mfmf`` is ported; every
+other key raises ``NotImplementedError`` naming the ROADMAP item that
+ports it (Queue 1 item 9: the flagship trunk and its family; item 12: the
+rest of the zoo).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Type, Union
+
+import torch
+
+from multimodal_fusion_tpu_torch.config import ModelConfig
+from multimodal_fusion_tpu_torch.models.base import BaseModel
+from multimodal_fusion_tpu_torch.models.mfmf import MFMF
+
+_ITEM_9 = (
+    "mil", "clam", "clam_mlp", "clam_mlp_detach",
+    "svd_gate_random_clam", "svd_gate_random_clam_detach",
+    "clip_gate_random_clam", "clip_gate_random_clam_detach",
+    "deep_supervise_svd_gate_random", "deep_supervise_svd_gate_random_detach",
+)
+_ITEM_12 = (
+    "auc_clam", "gate_shared_mil", "gate_mil", "gate_auc_mil", "gate_mil_detach",
+    "svd_pool", "mdlm", "ps3", "fbp", "cust_omics", "svd_clam", "auto_connections",
+    "cox_svd_gate_random_clam",
+)
+
+# key -> model class, or the ROADMAP item that ports it
+MODEL_REGISTRY: Dict[str, Union[Type[BaseModel], str]] = {
+    **{k: "ROADMAP Queue 1 item 9" for k in _ITEM_9},
+    **{k: "ROADMAP Queue 1 item 12" for k in _ITEM_12},
+    "mfmf": MFMF,
+}
+
+
+class ModelFactory:
+    @staticmethod
+    def create_model(config, seed: int = 0, device: Optional[Union[str, torch.device]] = None
+                     ) -> BaseModel:
+        """Build a model from a ModelConfig (or raw dict) with weights drawn
+        from a ``torch.Generator`` seeded with ``seed`` on ``device``
+        (default: the CUDA card)."""
+        if isinstance(config, dict):
+            config = ModelConfig.from_dict(config)
+        model_type = config.model_type
+        if model_type not in MODEL_REGISTRY:
+            raise ValueError(
+                f"Unknown model type {model_type!r}; available: {sorted(MODEL_REGISTRY)}"
+            )
+        cls = MODEL_REGISTRY[model_type]
+        if isinstance(cls, str):
+            raise NotImplementedError(f"model {model_type!r} is not ported yet ({cls})")
+        dev = torch.device("cuda" if device is None else device)
+        return cls(config, torch.Generator(device=dev).manual_seed(seed))
+
+    @staticmethod
+    def available_models():
+        return sorted(MODEL_REGISTRY)
+
+
+def create_model(config, seed: int = 0, device=None) -> BaseModel:
+    return ModelFactory.create_model(config, seed, device)

@@ -12,8 +12,18 @@ plus an optional leading batch dimension B that takes the place of
   the row max ``m``, the 1/l normalisation deferred to the end, the hash
   dropout applied to the unnormalised probabilities after ``l`` is summed,
   and p cast to v's dtype before the P.V product.  It returns (o, m, l).
-- ``fused_attention`` runs K3 (``ops.attention_kernel``) on CUDA tensors
-  and the plain version on CPU tensors.
+- ``plain_fused_attention_bwd`` is the plain version of the backward
+  kernel K4 (``_attn_bwd_kernel``): p = exp(s - m) / l recomputed per
+  512-key chunk from the saved row statistics, ds = p (dp - dsum) scale
+  with dsum = rowsum(do * o) given, zero cotangent on masked keys, the same
+  hash dropout mask, ds rounded to k's dtype before the dq and dk products
+  and the dropped p to do's dtype before the dv product.
+- ``fused_attention`` goes through ``FusedAttention``, a
+  ``torch.autograd.Function``: its forward is K3 (``ops.attention_kernel``)
+  on CUDA tensors and the plain version on CPU tensors; it saves q, k, v,
+  o, m, l, the mask and the seeds, and its backward computes dsum in
+  PyTorch and runs K4 (the plain version on CPU tensors).  kv_mask and the
+  seeds get no gradient.
 - ``xla_attention`` is the einsum -> softmax -> einsum formulation, with
   Bernoulli dropout drawn from a ``torch.Generator``.
 - ``attention`` dispatches by ``impl`` as the JAX package does, except that
@@ -21,10 +31,14 @@ plus an optional leading batch dimension B that takes the place of
   (``AUTO_MIN_SCORE_ELEMS``) was measured on a TPU and does not carry over.
 
 Dropout mask: a murmur3 fmix32 hash of the absolute (head, q, k) index with
-uint32 wraparound, so any tiling draws the same mask.  Under ``jax.vmap``
-the JAX kernel hashes the same (head, q, k) indices for every batch element
-(its interpret run with batch 3 shows it), so every batch element here
-draws the same mask too.
+uint32 wraparound, so any tiling draws the same mask.  The seed is either
+one int32 for the whole batch or an int32 tensor [B] with one seed per
+case.  Under ``jax.vmap`` with one unbatched key the JAX kernel hashes the
+same (head, q, k) indices with the same seed for every batch element, so
+every case draws the same mask (a scalar seed here); with per-case keys,
+as the survival trainer vmaps them, each case's ``fused_attention`` draws
+its own seed (pallas_attention.py:658) and so its own mask (a seed tensor
+[B] here).
 """
 
 from __future__ import annotations
@@ -43,7 +57,9 @@ K_CHUNK = 512  # keys per online-softmax step (pallas_attention._K_CHUNK)
 INIT_MAX = -1e30  # running-max start: a fully masked chunk never forms inf - inf
 _U32 = 0xFFFFFFFF
 
-Seed = Union[int, torch.Generator, None]
+# an int32 dropout seed, an int32 tensor [B] of per-case seeds, or a
+# generator to draw one seed from
+Seed = Union[int, torch.Tensor, torch.Generator, None]
 
 
 # ---------------------------------------------------------------------------
@@ -78,16 +94,26 @@ def _hash_keep(z: torch.Tensor, threshold: int) -> torch.Tensor:
     return z >= threshold
 
 
-def _keep_mask(seed: int, h0: int, q0: int, k0: int, shape, t_q: int, t_k: int,
+def _seed_u32(seed, device=None) -> torch.Tensor:
+    """A scalar seed or a [B] seed tensor as uint32 values in int64, shaped
+    [1 or B, 1, 1, 1] to broadcast over [B, H, Q, K]."""
+    if isinstance(seed, torch.Tensor):
+        return (seed.to(device=device, dtype=torch.int64) & _U32).view(-1, 1, 1, 1)
+    return torch.tensor(int(seed) & _U32, dtype=torch.int64, device=device).view(1, 1, 1, 1)
+
+
+def _keep_mask(seed, h0: int, q0: int, k0: int, shape, t_q: int, t_k: int,
                rate: float, device=None) -> torch.Tensor:
-    """Keep mask for an [H, Q, K] block at absolute offsets (h0, q0, k0)."""
+    """Keep mask [1 or B, H, Q, K] for an [H, Q, K] block at absolute
+    offsets (h0, q0, k0); ``seed`` is a scalar or a [B] tensor of per-case
+    seeds."""
     kw = dict(dtype=torch.int64, device=device)
     h_idx = (h0 + torch.arange(shape[0], **kw)).view(-1, 1, 1) & _U32
     q_idx = (q0 + torch.arange(shape[1], **kw)).view(1, -1, 1) & _U32
     k_idx = (k0 + torch.arange(shape[2], **kw)).view(1, 1, -1) & _U32
     lin = (_mul32(h_idx, t_q) + q_idx) & _U32
     lin = (_mul32(lin, t_k) + k_idx) & _U32
-    z = (_mul32(lin, 0x9E3779B9) + (int(seed) & _U32)) & _U32
+    z = (_mul32(lin, 0x9E3779B9)[None] + _seed_u32(seed, device)) & _U32
     return _hash_keep(z, _drop_threshold(rate))
 
 
@@ -95,19 +121,32 @@ def dropout_keep_reference(seed: int, heads: int, t_q: int, t_k: int, rate: floa
                            device=None) -> torch.Tensor:
     """The kernels' full [H, Tq, Tk] keep mask for a seed (an int32 as the
     JAX wrapper draws it, or its uint32 value)."""
-    return _keep_mask(seed, 0, 0, 0, (heads, t_q, t_k), t_q, t_k, rate, device)
+    return _keep_mask(seed, 0, 0, 0, (heads, t_q, t_k), t_q, t_k, rate, device)[0]
 
 
-def draw_seed(seed: Seed) -> int:
-    """The int32 dropout seed: ``seed`` itself, or one drawn from a
-    ``torch.Generator`` (the counterpart of the JAX wrapper's
-    ``jax.random.bits`` draw, pallas_attention.py:658)."""
+def draw_seed(seed: Seed):
+    """The dropout seed: ``seed`` itself (an int32, or an int32 tensor [B]
+    of per-case seeds), or one int32 drawn from a ``torch.Generator`` (the
+    counterpart of the JAX wrapper's ``jax.random.bits`` draw,
+    pallas_attention.py:658)."""
     if isinstance(seed, torch.Generator):
         return int(torch.randint(-2 ** 31, 2 ** 31, (1,), generator=seed,
                                  device=seed.device, dtype=torch.int64).item())
     if seed is None:
         raise ValueError("dropout_rate > 0 requires a seed")
+    if isinstance(seed, torch.Tensor):
+        if seed.dim() != 1 or seed.dtype not in (torch.int32, torch.int64):
+            raise ValueError(f"per-case seeds must be an integer tensor [B], got "
+                             f"{seed.dtype} {tuple(seed.shape)}")
+        return seed
     return int(seed)
+
+
+def draw_case_seeds(generator: torch.Generator, n: int) -> torch.Tensor:
+    """``n`` int32 per-case dropout seeds drawn from ``generator`` on its
+    device."""
+    return torch.randint(-2 ** 31, 2 ** 31, (n,), generator=generator,
+                         device=generator.device, dtype=torch.int64).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -152,12 +191,14 @@ def plain_fused_attention(
     *,
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
-    seed: Optional[int] = None,
+    seed=None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K3 in plain PyTorch.  Returns (o in the input layout and dtype,
     row max m, pre-dropout exp-sum l), m and l float32 [H, Tq] (or
-    [B, H, Tq])."""
+    [B, H, Tq]).  ``seed``: an int32, or an int32 tensor [B] of per-case
+    seeds."""
     q, k, v, kv_mask, unbatched = batched_layout(q, k, v, kv_mask)
+    _check_seeds(seed, q.shape[0])
     _, t_q, heads, hd = q.shape
     t_k = k.shape[1]
     if scale is None:
@@ -196,6 +237,76 @@ def plain_fused_attention(
     return o, m, l
 
 
+def plain_fused_attention_bwd(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    do: torch.Tensor,
+    m: torch.Tensor,
+    l: torch.Tensor,
+    dsum: torch.Tensor,
+    kv_mask: Optional[torch.Tensor] = None,
+    *,
+    scale: Optional[float] = None,
+    dropout_rate: float = 0.0,
+    seed=None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 in plain PyTorch.  q and do [(B,) Tq, H, hd], k and v
+    [(B,) Tk, H, hd], the forward's m and l and dsum = rowsum(do * o), all
+    float32 [(B,) H, Tq].  Returns (dq, dk, dv) in the inputs' layout and
+    dtype."""
+    q, k, v, kv_mask, unbatched = batched_layout(q, k, v, kv_mask)
+    if unbatched:
+        do, m, l, dsum = do[None], m[None], l[None], dsum[None]
+    _check_seeds(seed, q.shape[0])
+    _, t_q, heads, hd = q.shape
+    t_k = k.shape[1]
+    if scale is None:
+        scale = 1.0 / (hd ** 0.5)
+    rate = float(dropout_rate)
+    _drop_threshold(rate)
+    if rate > 0.0 and seed is None:
+        raise ValueError("dropout_rate > 0 requires a seed")
+    qh, kh, vh, doh = (x.permute(0, 2, 1, 3).float() for x in (q, k, v, do))
+    m, dsum = m[..., None].float(), dsum[..., None].float()
+    r = 1.0 / l[..., None].float()  # reciprocal once per row, as the kernels do
+    dq = torch.zeros(qh.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(kh.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(kh.shape, dtype=torch.float32, device=q.device)
+    inv = 1.0 / (1.0 - rate)
+    for c0 in range(0, t_k, K_CHUNK):
+        c1 = min(c0 + K_CHUNK, t_k)
+        kc, vc = kh[:, :, c0:c1], vh[:, :, c0:c1]
+        s = (qh @ kc.transpose(-1, -2)) * scale
+        if kv_mask is not None:
+            masked = ~kv_mask[:, None, None, c0:c1]
+            s = torch.where(masked, NEG_INF, s)  # REPLACE
+        p = torch.exp(s - m) * r
+        dp = doh @ vc.transpose(-1, -2)  # dL/d(drop(p))
+        pd = p
+        if rate > 0.0:
+            keep = _keep_mask(seed, 0, 0, c0, (heads, t_q, c1 - c0), t_q, t_k, rate, q.device)
+            pd = torch.where(keep, p * inv, 0.0)
+            dp = torch.where(keep, dp * inv, 0.0)
+        ds = p * (dp - dsum) * scale
+        if kv_mask is not None:
+            ds = torch.where(masked, 0.0, ds)  # masked scores are constants
+        ds = ds.to(k.dtype).float()
+        pd = pd.to(do.dtype).float()
+        dq += ds @ kc
+        dk[:, :, c0:c1] = ds.transpose(-1, -2) @ qh
+        dv[:, :, c0:c1] = pd.transpose(-1, -2) @ doh
+    out = tuple(g.permute(0, 2, 1, 3).to(x.dtype) for g, x in ((dq, q), (dk, k), (dv, v)))
+    if unbatched:
+        return tuple(g[0] for g in out)
+    return out
+
+
+def _check_seeds(seed, b: int) -> None:
+    if isinstance(seed, torch.Tensor) and seed.shape != (b,):
+        raise ValueError(f"per-case seeds {tuple(seed.shape)} do not match batch {b}")
+
+
 def xla_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -224,6 +335,39 @@ def xla_attention(
 # ---------------------------------------------------------------------------
 
 
+class FusedAttention(torch.autograd.Function):
+    """o = softmax(q k^T scale) v through K3, differentiable in q, k and v
+    through K4 (the counterpart of the JAX custom VJP ``_attention_hxd``).
+    ``plain`` selects the kernels' plain versions on any device; otherwise
+    the kernels run on CUDA tensors and the plain versions on CPU
+    tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, kv_mask, seed, scale, rate, plain):
+        # imported here: the kernel module imports this one for its plain versions
+        from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
+
+        fwd = plain_fused_attention if plain else attention_fwd
+        o, m, l = fwd(q, k, v, kv_mask, scale=scale, dropout_rate=rate, seed=seed)
+        ctx.save_for_backward(q, k, v, o, m, l)
+        ctx.kv_mask, ctx.seed = kv_mask, seed
+        ctx.scale, ctx.rate, ctx.plain = scale, rate, plain
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd
+
+        q, k, v, o, m, l = ctx.saved_tensors
+        # softmax-transpose row term sum_k(dL/dp * p) = rowsum(do * o), valid
+        # through dropout (pallas_attention.py:593-598)
+        dsum = (do.float() * o.float()).sum(-1).transpose(-1, -2).contiguous()  # [(B,) H, Tq]
+        bwd = plain_fused_attention_bwd if ctx.plain else attention_bwd
+        dq, dk, dv = bwd(q, k, v, do.to(q.dtype), m, l, dsum, ctx.kv_mask, scale=ctx.scale,
+                         dropout_rate=ctx.rate, seed=ctx.seed)
+        return dq, dk, dv, None, None, None, None, None
+
+
 def fused_attention(
     q: torch.Tensor,
     k: torch.Tensor,
@@ -233,16 +377,17 @@ def fused_attention(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     seed: Seed = None,
+    plain: bool = False,
 ) -> torch.Tensor:
-    """softmax(q k^T / sqrt(hd)) v through K3: the kernel on CUDA tensors,
-    its plain version on CPU tensors."""
-    # imported here: the kernel module imports this one for its plain version
-    from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
-
+    """softmax(q k^T / sqrt(hd)) v through K3 and, for its gradient, K4:
+    the kernels on CUDA tensors, their plain versions on CPU tensors (or
+    on any device with ``plain``)."""
     rate = float(dropout_rate)
     _drop_threshold(rate)
     seed_i = draw_seed(seed) if rate > 0.0 else None
-    return attention_fwd(q, k, v, kv_mask, scale=scale, dropout_rate=rate, seed=seed_i)[0]
+    if scale is None:
+        scale = 1.0 / (q.shape[-1] ** 0.5)
+    return FusedAttention.apply(q, k, v, kv_mask, seed_i, float(scale), rate, plain)
 
 
 # Escape hatch kept from the JAX package (GSPMD traces there): every impl
@@ -273,12 +418,14 @@ def attention(
 ) -> torch.Tensor:
     """Multi-head attention with implementation dispatch.
 
-    impl: 'auto' and 'pallas' run K3 (the kernel on CUDA tensors, its plain
-    version on CPU tensors); 'pallas_interpret' runs K3's plain version on
-    any device; 'xla' the einsum formulation.  Dropout applies when
-    ``train`` is set and a ``seed`` is given: K3 hashes an int32 seed (or
-    one drawn from a generator); 'xla' draws Bernoulli masks from a
-    generator (or one seeded with the int)."""
+    impl: 'auto' and 'pallas' run K3 and, for the gradient, K4 (the
+    kernels on CUDA tensors, their plain versions on CPU tensors);
+    'pallas_interpret' runs their plain versions on any device; 'xla' the
+    einsum formulation, differentiated by autograd.  Dropout applies when
+    ``train`` is set and a ``seed`` is given: K3 hashes an int32 seed, an
+    int32 tensor [B] of per-case seeds, or one seed drawn from a generator;
+    'xla' draws Bernoulli masks from a generator (or one seeded with the
+    int)."""
     if _FORCE_XLA.get():
         impl = "xla"
     if impl not in VALID_IMPLS:
@@ -289,7 +436,5 @@ def attention(
         if rate > 0.0 and not isinstance(seed, torch.Generator):
             gen = torch.Generator(device=q.device).manual_seed(int(seed))
         return xla_attention(q, k, v, kv_mask, rate, gen)
-    if impl == "pallas_interpret":
-        seed_i = draw_seed(seed) if rate > 0.0 else None
-        return plain_fused_attention(q, k, v, kv_mask, dropout_rate=rate, seed=seed_i)[0]
-    return fused_attention(q, k, v, kv_mask, dropout_rate=rate, seed=seed)
+    return fused_attention(q, k, v, kv_mask, dropout_rate=rate, seed=seed,
+                           plain=impl == "pallas_interpret")

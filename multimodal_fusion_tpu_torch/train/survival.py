@@ -1,0 +1,485 @@
+"""K-fold survival trainer (counterpart of
+``multimodal_fusion_tpu.train.survival``).
+
+Reference semantics (``downstream_survival/trainer.py:580-1185``), as the
+JAX package runs them:
+
+- one optimizer update per gradient-accumulation **window** of
+  ``batch_size`` cases: the cases are padded to a shared bucket and run as
+  one batched forward (the JAX package's vmap over cases is the port's
+  leading case axis), the window loss is ``sum(per-case losses) / G`` and
+  one optimizer step fires per window;
+- early stopping on a configurable metric (auc/acc/loss, mode max/min) with
+  ``stop_epoch`` minimum (reference :487-578);
+- per-fold checkpoints, final val + test evaluation with AUROC, a
+  per-patient probability dump, the same log files as the JAX trainer.
+
+Execution options (``ExperimentConfig``):
+
+- ``device_data`` ("auto", the default, True or False): keep the fold's
+  cases on the device as one padded table per channel, so that a window is
+  a row gather on the device instead of a host pad and upload.  "auto"
+  takes it when the tables fit ``DEVICE_DATA_AUTO_BUDGET``.  Numerics equal
+  the host path's through the mask-aware padding of the models.
+- ``scan_windows``: accepted; the windows run one after another (the JAX
+  package fuses W of them into one dispatch with numerics equal to
+  sequential steps).
+- ``mesh_shape``, ``remat`` and ``compute_dtype="bfloat16"`` are not ported
+  yet and raise ``NotImplementedError`` naming their ROADMAP items.
+
+Dropout draws from a ``torch.Generator`` on the run's device seeded like
+the JAX trainer's key (``seed * 1000 + fold``); the draws differ from
+jax.random's.  At a model's default dropout of 0 training is deterministic
+and follows the JAX trainer's trajectory: the window order comes from
+numpy in both.
+"""
+
+from __future__ import annotations
+
+import json
+import time
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from multimodal_fusion_tpu_torch.config import Configs
+from multimodal_fusion_tpu_torch.data.batching import make_window, pad_case, window_bag_sizes
+from multimodal_fusion_tpu_torch.data.splits import FoldSplit, WeightedRandomSampler, save_fold_split
+from multimodal_fusion_tpu_torch.device import resolve_device
+from multimodal_fusion_tpu_torch.models.factory import ModelFactory
+from multimodal_fusion_tpu_torch.train.checkpoint import load_model, save_model
+from multimodal_fusion_tpu_torch.train.metrics import accuracy, binary_auroc, multiclass_auroc_macro
+from multimodal_fusion_tpu_torch.train.optim import LRSchedule, make_optimizer, set_lr
+from multimodal_fusion_tpu_torch.utils.logging import FoldLogger
+
+# device_data="auto" takes the device tables only when they fit this
+# budget (the JAX package's rule, kept as it is)
+DEVICE_DATA_AUTO_BUDGET = 8 * 2**30
+
+
+class EarlyStopping:
+    def __init__(self, patience=25, stop_epoch=10, mode="max", min_delta=0.0):
+        self.patience = patience
+        self.stop_epoch = stop_epoch
+        mode = str(mode).lower()
+        if mode not in ("max", "min"):
+            # anything else would silently take the min branch and restore
+            # the worst epoch
+            raise ValueError(f"mode must be 'max' or 'min', got {mode!r}")
+        self.mode = mode
+        self.min_delta = min_delta
+        self.counter = 0
+        self.best_score = -np.inf if mode == "max" else np.inf
+        self.early_stop = False
+        self._saved_once = False
+
+    def step(self, epoch: int, score: float) -> bool:
+        """Returns True when this epoch improved (caller saves checkpoint)."""
+        if self.mode == "max":
+            better = score > self.best_score + self.min_delta
+        else:
+            better = score < self.best_score - self.min_delta
+        if better:
+            self.best_score = score
+            self.counter = 0
+            self._saved_once = True
+            return True
+        if not self._saved_once:
+            # first evaluation with a degenerate metric (e.g. NaN AUC on a
+            # single-class val split): still record a checkpoint, but keep
+            # best_score open so any finite score later counts as improvement
+            self._saved_once = True
+            self.counter = 0
+            return True
+        self.counter += 1
+        if self.counter >= self.patience and epoch > self.stop_epoch:
+            self.early_stop = True
+        return False
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_leaves(tree) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+class SurvivalTrainer:
+    def __init__(self, configs: Configs, log_dir: Union[str, Path],
+                 device: Optional[Union[str, torch.device]] = None):
+        self.configs = configs
+        self.exp = configs.experiment_config
+        self.device = resolve_device(device)
+        self.log_dir = Path(log_dir)
+        self.log_dir.mkdir(parents=True, exist_ok=True)
+        if self.exp.mesh_shape:
+            raise NotImplementedError("mesh_shape (data parallelism) is not ported yet: "
+                                      "ROADMAP Queue 1 item 16")
+        if self.exp.get("remat", False):
+            raise NotImplementedError("remat is not ported yet: ROADMAP Queue 1 item 11")
+        if configs.model_config.get("compute_dtype", "float32") == "bfloat16":
+            raise NotImplementedError('compute_dtype="bfloat16" inference is not ported yet: '
+                                      "ROADMAP Queue 1 item 10")
+
+    # ------------------------------------------------------------------
+    # model, windows, tables
+    # ------------------------------------------------------------------
+
+    def _build_model(self, fold_idx: int):
+        return ModelFactory.create_model(self.configs.model_config, seed=self.exp.seed + fold_idx,
+                                         device=self.device)
+
+    def _to_device(self, window) -> Dict[str, Any]:
+        """A numpy window (``data.batching.make_window``) as tensors on the
+        run's device: channels float32, masks bool, labels int64."""
+        def put(x):
+            t = torch.as_tensor(x)
+            return t.to(self.device, dtype=torch.int64 if t.dtype == torch.int32 else None)
+
+        return {k: _tree_map(put, window[k]) for k in ("channels", "masks", "label")}
+
+    def _device_tables(self, dataset, indices):
+        """The cases at ``indices`` as one device-resident table per channel
+        (every case padded to one bucket per channel over all of them), so a
+        training or eval window is a row gather on the device.  Each case is
+        padded on the host and copied into its row: the host never holds the
+        stacked tables.
+
+        Returns ``(tables, row_of)`` (``row_of`` maps dataset index -> table
+        row), or ``(None, None)`` when ``device_data`` is "auto" and the
+        tables would exceed ``DEVICE_DATA_AUTO_BUDGET``."""
+        raws, labels = [], []
+        for i in indices:
+            raw, label = dataset.get_case(dataset.case_ids[int(i)])
+            raws.append(raw)
+            labels.append(label)
+        sizes = window_bag_sizes(raws)
+        first = pad_case(raws[0], labels[0], sizes)
+        first = {k: first[k] for k in ("channels", "masks", "label")}
+        nbytes = len(raws) * sum(np.asarray(x).nbytes for x in _tree_leaves(first))
+        if nbytes > DEVICE_DATA_AUTO_BUDGET:
+            if self.exp.get("device_data", "auto") == "auto":
+                print(f"device_data=auto: tables are {nbytes / 2**30:.1f} GiB "
+                      f"(> {DEVICE_DATA_AUTO_BUDGET / 2**30:.0f} GiB budget) — "
+                      "using the host window path")
+                return None, None
+            print(f"device_data: tables are {nbytes / 2**30:.1f} GiB — ensure they fit "
+                  "device memory (or disable exp.device_data)")
+
+        def empty(x):
+            x = torch.as_tensor(np.asarray(x))
+            dtype = torch.int64 if x.dtype == torch.int32 else x.dtype
+            return torch.empty((len(raws),) + tuple(x.shape), dtype=dtype, device=self.device)
+
+        tables = _tree_map(empty, first)
+        for r, (raw, label) in enumerate(zip(raws, labels)):
+            case = first if r == 0 else pad_case(raw, label, sizes)
+            for key in tables:
+                if isinstance(tables[key], dict):
+                    for ch, t in tables[key].items():
+                        t[r].copy_(torch.from_numpy(np.asarray(case[key][ch])))
+                else:
+                    tables[key][r] = int(case[key])
+        row_of = {int(i): r for r, i in enumerate(indices)}
+        return tables, row_of
+
+    @staticmethod
+    def _gather_window(tables, idx: torch.Tensor):
+        """Row-gather a window out of the device tables."""
+        return _tree_map(lambda t: t.index_select(0, idx), tables)
+
+    def _windows(self, dataset, indices: Sequence[int], G: int):
+        """Yield (case ids, numpy window) of <= G cases each."""
+        case_ids = [dataset.case_ids[i] for i in indices]
+        for start in range(0, len(case_ids), G):
+            chunk = case_ids[start : start + G]
+            raws, labels = [], []
+            for cid in chunk:
+                raw, label = dataset.get_case(cid)
+                raws.append(raw)
+                labels.append(label)
+            yield chunk, make_window(raws, labels)
+
+    def _windows_prefetched(self, dataset, indices: Sequence[int], G: int, depth: int = 2):
+        """Producer-consumer wrapper over ``_windows``: the next windows'
+        reads and padding run on a background thread while the device
+        trains on the current one (order and results identical).
+
+        Abort safety: if the consumer stops early (a step raised, the
+        generator is closed), the producer's bounded-timeout put notices the
+        stop flag and exits; a plain blocking put would deadlock
+        ``ThreadPoolExecutor.__exit__`` on the full queue.  Producer
+        exceptions are re-raised in the consumer instead of passing for a
+        clean end of data."""
+        import queue as queue_mod
+        from concurrent.futures import ThreadPoolExecutor
+
+        q: queue_mod.Queue = queue_mod.Queue(maxsize=depth)
+        sentinel = object()
+        stop = False
+
+        def put(item) -> bool:
+            while not stop:
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue_mod.Full:
+                    continue
+            return False
+
+        def producer():
+            try:
+                for item in self._windows(dataset, indices, G):
+                    if not put(item):
+                        return
+            except BaseException as e:  # noqa: BLE001 — re-raised by the consumer
+                put(("__error__", e))
+            else:
+                put(sentinel)
+
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pool.submit(producer)
+            try:
+                while True:
+                    item = q.get()
+                    if item is sentinel:
+                        break
+                    if isinstance(item, tuple) and len(item) == 2 and item[0] == "__error__":
+                        raise item[1]
+                    yield item
+            finally:
+                stop = True
+                # drain so a producer blocked in put() sees the flag promptly
+                while not q.empty():
+                    try:
+                        q.get_nowait()
+                    except queue_mod.Empty:
+                        break
+
+    # ------------------------------------------------------------------
+    # steps
+    # ------------------------------------------------------------------
+
+    def _train_step(self, model, optimizer, window, generator) -> torch.Tensor:
+        """One window update; returns the window's mean case loss (a 0-d
+        tensor left on the device)."""
+        labels = window["label"]
+        case = {"channels": window["channels"], "masks": window["masks"]}
+        res = model(case, generator=generator, train=True)
+        losses = model.loss_fn(res["logits"], labels, res)
+        total = losses.sum() / labels.shape[0]
+        optimizer.zero_grad(set_to_none=True)
+        total.backward()
+        optimizer.step()
+        return losses.detach().mean()
+
+    @staticmethod
+    @torch.no_grad()
+    def _eval_window(model, window):
+        """(logits, probabilities, predictions, per-case losses, risk) of one
+        window, left on the device."""
+        case = {"channels": window["channels"], "masks": window["masks"]}
+        res = model(case, train=False)
+        losses = model.loss_fn(res["logits"], window["label"], res)
+        # log-risk for the C-index: the Cox head's output when present, the
+        # positive-class logit otherwise
+        risk = res["risk"] if "risk" in res else res["logits"][:, 1:2]
+        return res["logits"], res["probabilities"], res["predictions"], losses, risk
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+
+    def _evaluate(self, dataset, indices, model, tables=None, row_of=None) -> Dict[str, Any]:
+        """Evaluate the cases at ``indices`` in windows of min(batch_size,
+        16); results stay on the device until one host sync at the end."""
+        G = min(self.exp.batch_size, 16)
+        outs = []
+        if tables is not None:
+            rows = torch.as_tensor([row_of[int(i)] for i in indices], dtype=torch.int64)
+            patient_ids = [dataset.case_ids[int(i)] for i in indices]
+            labels = [np.asarray(dataset.labels)[np.asarray(indices, int)]]
+            for s in range(0, len(rows), G):
+                idx = rows[s : s + G].to(self.device)
+                outs.append(self._eval_window(model, self._gather_window(tables, idx)))
+        else:
+            patient_ids, labels = [], []
+            for chunk, window in self._windows(dataset, indices, G):
+                labels.append(np.asarray(window["label"]))
+                patient_ids.extend(chunk)
+                outs.append(self._eval_window(model, self._to_device(window)))
+        return self._eval_summary(dataset, outs, labels, patient_ids)
+
+    def _eval_summary(self, dataset, outs, all_labels, patient_ids) -> Dict[str, Any]:
+        if outs:
+            logits, probs, preds, losses, risk = (
+                torch.cat([o[j].reshape(o[j].shape[0], -1) for o in outs]).cpu().numpy()
+                for j in range(5)
+            )
+        else:
+            probs = preds = losses = risk = np.zeros((0, 1))
+        preds, risk = preds.reshape(-1), risk.reshape(-1)
+        labels = np.concatenate(all_labels) if all_labels else np.zeros((0,), int)
+        out = {
+            # macro multiclass AUROC above 2 classes (reference
+            # trainer.py:916-921)
+            "auc": binary_auroc(probs[:, 1], labels) if probs.shape[1] == 2
+            else multiclass_auroc_macro(probs, labels),
+            "acc": accuracy(preds, labels),
+            "loss": float(losses.mean()),
+            "probs": probs,
+            "preds": preds,
+            "labels": labels,
+            "risk": risk,
+            "patient_ids": patient_ids,
+        }
+        if getattr(dataset, "has_survival_time", False):
+            from multimodal_fusion_tpu_torch.train.metrics import concordance_index
+
+            time_arr = np.asarray([dataset.case_to_time[c] for c in patient_ids])
+            event_arr = np.asarray([dataset.case_to_event[c] for c in patient_ids])
+            out["c_index"] = concordance_index(risk, time_arr, event_arr)
+        return out
+
+    # ------------------------------------------------------------------
+
+    def train_fold(self, dataset, split: FoldSplit, fold_idx: int) -> Dict[str, Any]:
+        exp = self.exp
+        save_fold_split(split, dataset.case_ids, self.log_dir / f"splits_{fold_idx}.csv")
+
+        model = self._build_model(fold_idx)
+        if model.has_group_loss():
+            raise NotImplementedError("window group losses are not ported yet: "
+                                      "ROADMAP Queue 1 item 8")
+        optimizer = make_optimizer(exp.optimizer, exp.weight_decay, model.parameters(), exp.lr)
+        tables = row_of = None
+        if exp.get("device_data", "auto"):  # "auto" and True both try; False skips
+            all_idx = np.concatenate([split.train_idx, split.val_idx, split.test_idx]).astype(np.int64)
+            tables, row_of = self._device_tables(dataset, all_idx)
+        schedule = LRSchedule(exp.lr, exp.scheduler_params if exp.scheduler else None)
+        if exp.scheduler:
+            schedule.config.setdefault("type", exp.scheduler)
+            schedule.kind = schedule.config.get("type")
+
+        train_labels = dataset.labels[split.train_idx]
+        sampler = (WeightedRandomSampler(train_labels, exp.seed + fold_idx)
+                   if exp.weighted_sampling else None)
+        shuffle_rng = np.random.default_rng(exp.seed + fold_idx)
+        # the early_stopping flag gates both the stop and the best-checkpoint
+        # restore (reference trainer.py:691-744)
+        use_early_stop = bool(exp.get("early_stopping", True))
+        stopper = EarlyStopping(patience=exp.patience, stop_epoch=exp.min_epochs,
+                                mode=exp.monitor_mode)
+        ckpt_path = self.log_dir / f"s_{fold_idx}_checkpoint.npz"
+        generator = torch.Generator(device=self.device).manual_seed(exp.seed * 1000 + fold_idx)
+        history: List[Dict[str, float]] = []
+        logger = FoldLogger(self.log_dir, fold_idx, self.configs.model_config.n_classes)
+
+        for epoch in range(exp.max_epochs):
+            t0 = time.time()
+            if sampler is not None:
+                order = split.train_idx[sampler.sample_epoch()]
+            else:
+                order = shuffle_rng.permutation(split.train_idx)
+            lr = schedule.lr_for_epoch(epoch)
+            set_lr(optimizer, lr)
+            # per-window losses stay on the device until the epoch ends
+            epoch_losses: List[torch.Tensor] = []
+            if tables is not None:
+                rows = torch.as_tensor([row_of[int(i)] for i in order], dtype=torch.int64)
+                for s in range(0, len(rows), exp.batch_size):
+                    window = self._gather_window(tables, rows[s : s + exp.batch_size].to(self.device))
+                    epoch_losses.append(self._train_step(model, optimizer, window, generator))
+            else:
+                for _, window in self._windows_prefetched(dataset, order, exp.batch_size):
+                    epoch_losses.append(
+                        self._train_step(model, optimizer, self._to_device(window), generator))
+            losses_np = torch.stack(epoch_losses).cpu().numpy() if epoch_losses else np.asarray([])
+
+            val = self._evaluate(dataset, split.val_idx, model, tables, row_of)
+            metric = val[exp.monitor_metric]
+            schedule.plateau_step(val["loss"])
+            improved = stopper.step(epoch, metric)
+            if improved and use_early_stop:
+                save_model(ckpt_path, model)
+            history.append({
+                "epoch": epoch,
+                "lr": lr,
+                "train_loss": float(losses_np.mean()) if losses_np.size else float("nan"),
+                "val_loss": val["loss"],
+                "val_auc": val["auc"],
+                "val_acc": val["acc"],
+                "time_s": time.time() - t0,
+            })
+            logger.log_epoch(epoch, lr, history[-1]["train_loss"], val, history[-1]["time_s"])
+            if exp.get("verbose", True):
+                h = history[-1]
+                print(f"fold {fold_idx} epoch {epoch}: train_loss={h['train_loss']:.4f} "
+                      f"val_loss={h['val_loss']:.4f} val_auc={h['val_auc']:.4f}")
+            if use_early_stop and stopper.early_stop:
+                break
+
+        if use_early_stop:
+            if ckpt_path.exists():  # restore the best checkpoint
+                load_model(ckpt_path, model)
+        else:
+            # reference without the flag: persist and evaluate the final weights
+            save_model(ckpt_path, model)
+
+        val = self._evaluate(dataset, split.val_idx, model, tables, row_of)
+        test = self._evaluate(dataset, split.test_idx, model, tables, row_of)
+
+        # per-patient probability dump (reference trainer.py:1013)
+        patient_results = {
+            pid: {"prob": test["probs"][i].tolist(), "label": int(test["labels"][i])}
+            for i, pid in enumerate(test["patient_ids"])
+        }
+        summary = {
+            "fold": fold_idx,
+            "val_auc": val["auc"],
+            "val_acc": val["acc"],
+            "test_auc": test["auc"],
+            "test_acc": test["acc"],
+            "history": history,
+        }
+        (self.log_dir / f"fold_{fold_idx}_summary.json").write_text(
+            json.dumps({**summary, "patient_results": patient_results}, indent=2)
+        )
+        logger.finalize(summary)
+        self._fold_state = model
+        return summary
+
+    # ------------------------------------------------------------------
+
+    def evaluate_fold(
+        self,
+        dataset,
+        split: FoldSplit,
+        fold_idx: int,
+        checkpoint_path: Optional[Union[str, Path]] = None,
+        drop_prob: Optional[float] = None,
+        seed: int = 0,
+    ) -> Dict[str, Any]:
+        """Eval-only path: load a fold checkpoint and evaluate the test split
+        (reference trainer.py:1044-1169).  ``drop_prob`` (inference-time
+        modality dropout) raises for models that do not implement it, as in
+        the JAX trainer; no ported model does."""
+        model = self._build_model(fold_idx)
+        if drop_prob is not None and not getattr(model, "supports_drop_prob", False):
+            raise ValueError(f"{type(model).__name__} does not support inference-time modality "
+                             "dropout (drop_prob); use a *_detach variant")
+        load_model(Path(checkpoint_path or self.log_dir / f"s_{fold_idx}_checkpoint.npz"), model)
+        res = self._evaluate(dataset, split.test_idx, model)
+        return {k: res[k] for k in ("auc", "acc", "loss", "patient_ids")} | {
+            "probs": res["probs"].tolist(),
+            "labels": res["labels"].tolist(),
+            "preds": res["preds"].tolist(),
+            "risk": res["risk"].tolist(),
+        } | ({"c_index": res["c_index"]} if "c_index" in res else {})

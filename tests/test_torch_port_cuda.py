@@ -11,8 +11,8 @@ import pytest
 import torch
 
 from multimodal_fusion_tpu_torch.device import resolve_device
-from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention
-from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
+from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention, plain_fused_attention_bwd
+from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd, attention_fwd
 from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide
 from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
 from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -224,3 +224,125 @@ def test_attention_kernel_reads_strided_qkv(cuda):
     one = attention_fwd(q[1], k[1], v[1])  # unbatched [T, H, hd]
     assert one[0].shape == (257, 4, 64) and one[1].shape == (4, 257)
     assert torch.equal(one[0], got[0][1])
+
+
+# K4 against its plain version.  The two are fed the same m, l and dsum (the
+# plain forward's), so only the backward's arithmetic differs: f32 sums in
+# other orders (relative L2 <= 1e-5 per output); bf16 rounds ds and p to
+# bf16 before the second products on both sides, where a last-bit f32
+# difference can flip a rounding (relative L2 <= 1e-2).
+def _rel_l2(a, b):
+    a, b = a.float(), b.float()
+    return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
+
+
+def _bwd_inputs(rng, b, tq, tk, h, hd, dtype, cuda, mask=None, **dropout):
+    q, k, v = _attn_inputs(rng, b, tq, tk, h, hd, dtype, cuda)
+    do = torch.as_tensor(rng.standard_normal((b, tq, h, hd)).astype(np.float32), device=cuda).to(dtype)
+    o, m, l = plain_fused_attention(q, k, v, mask, **dropout)
+    dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    return q, k, v, do, m, l, dsum
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,hd,dtype,mask_kind",
+    [
+        (64, 5, 512, 8, 16, torch.float32, "markers"),  # MFMF block 1: other -> tma
+        (64, 5, 4096, 8, 16, torch.float32, "ragged"),  # block 2: result -> wsi bag
+        (64, 4096, 5, 8, 16, torch.float32, None),  # block 3: reconstruct -> result
+        (1, 4096, 4096, 8, 64, torch.float32, None),  # the bag gradient shape
+        (1, 4096, 4096, 8, 64, torch.bfloat16, None),
+        (2, 257, 257, 4, 64, torch.bfloat16, "ragged"),
+        (1, 40, 1100, 2, 40, torch.float32, "ragged"),  # hd padded to 64
+        (3, 7, 5, 3, 16, torch.float32, None),  # one partial tile each way
+        (1, 130, 70, 2, 128, torch.float32, "ragged"),
+        (1, 130, 70, 2, 128, torch.bfloat16, "ragged"),
+    ],
+)
+def test_attention_bwd_kernel_matches_plain(cuda, b, tq, tk, h, hd, dtype, mask_kind):
+    rng = np.random.default_rng(tq + tk + hd)
+    mask = None
+    if mask_kind == "ragged":
+        n_valid = rng.integers(tk // 2, tk + 1, b)
+        mask = torch.as_tensor(np.arange(tk)[None] < n_valid[:, None], device=cuda)
+    elif mask_kind == "markers":  # 8 markers of 9-16 valid of 64 padded rows
+        mask = torch.as_tensor(np.concatenate(
+            [np.arange(64)[None] < rng.integers(9, 17, (b, 1)) for _ in range(8)], axis=1), device=cuda)
+    args = _bwd_inputs(rng, b, tq, tk, h, hd, dtype, cuda, mask)
+    before = attention_bwd.launches
+    got = attention_bwd(*args, mask)
+    again = attention_bwd(*args, mask)
+    want = plain_fused_attention_bwd(*args, mask)
+    torch.cuda.synchronize()
+    assert attention_bwd.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+    bar = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_l2(g, w) <= bar, (name, _rel_l2(g, w))
+
+
+def test_attention_bwd_kernel_all_masked_and_per_case_seeds(cuda):
+    """Dropout 0.1 with one seed per case against the plain version; case 0
+    is all masked (dq = dk = 0, dv through the uniform p), case 1 ragged."""
+    rng = np.random.default_rng(4)
+    b, tq, tk, h, hd = 3, 70, 300, 2, 32
+    mask = torch.ones((b, tk), dtype=torch.bool, device=cuda)
+    mask[0] = False
+    mask[1, 211:] = False
+    seeds = torch.as_tensor([7, -1399772917, 123456], dtype=torch.int32, device=cuda)
+    drop = dict(dropout_rate=0.1, seed=seeds)
+    args = _bwd_inputs(rng, b, tq, tk, h, hd, torch.float32, cuda, mask, **drop)
+    _check_attn(attention_fwd(*args[:3], mask, **drop), plain_fused_attention(*args[:3], mask, **drop),
+                args[:3], mask, **drop)
+    got = attention_bwd(*args, mask, **drop)
+    want = plain_fused_attention_bwd(*args, mask, **drop)
+    for g, w in zip(got, want):
+        assert _rel_l2(g, w) <= 1e-5
+    assert not got[0][0].any() and not got[1][0].any() and got[2][0].abs().max() > 0
+    # one shared seed draws another mask than the per-case seeds
+    shared = attention_bwd(*args, mask, dropout_rate=0.1, seed=7)
+    assert torch.equal(shared[2][0], got[2][0]) and not torch.equal(shared[2][1], got[2][1])
+
+
+def test_gradients_reach_projections_through_auto(cuda):
+    """attention(impl='auto') on the card goes through K3 forward and K4
+    backward, and the q/k/v projection weights get the gradients a CPU run
+    of the same layer gets (plain K3 and K4)."""
+    from multimodal_fusion_tpu_torch.models.mfmf import CrossAttentionLayer
+
+    def layer(device):
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        return CrossAttentionLayer(128, 8, 1, 0.0, gen).to(device)
+
+    rng = np.random.default_rng(6)
+    q = torch.as_tensor(rng.standard_normal((4, 5, 128)).astype(np.float32))
+    kv = torch.as_tensor(rng.standard_normal((4, 300, 128)).astype(np.float32))
+    mask = torch.as_tensor(np.arange(300)[None] < rng.integers(100, 301, (4, 1)))
+    grads = {}
+    for device in ("cpu", cuda):
+        net = layer(device)
+        before = (attention_fwd.launches, attention_bwd.launches)
+        out = net(q.to(device), kv.to(device), mask.to(device))
+        (out ** 2).sum().backward()
+        after = (attention_fwd.launches, attention_bwd.launches)
+        assert after == (before if device == "cpu" else (before[0] + 1, before[1] + 1))
+        grads[str(device)] = {n: p.grad.cpu() for n, p in net.named_parameters()}
+    for name in ("q_proj.weight", "k_proj.weight", "v_proj.weight"):
+        g = grads[str(cuda)][name]
+        assert g is not None and float(g.abs().max()) > 0, name
+        assert _rel_l2(g, grads["cpu"][name]) <= 1e-4, name
+
+
+def test_attention_bwd_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((2, 5, 2, 16), device=cuda)
+    stats = torch.zeros((2, 2, 5), device=cuda)
+    with pytest.raises(ValueError):  # float16 is not a K4 dtype
+        attention_bwd(q.half(), q.half(), q.half(), q.half(), stats, stats + 1, stats)
+    with pytest.raises(ValueError):  # mixed dtypes
+        attention_bwd(q, q, q, q.bfloat16(), stats, stats + 1, stats)
+    wide = torch.zeros((5, 2, 136), device=cuda)
+    with pytest.raises(ValueError):  # head dim above 128
+        attention_bwd(wide, wide, wide, wide, stats[0], stats[0] + 1, stats[0])
+    with pytest.raises(ValueError):  # statistics of the wrong shape
+        attention_bwd(q, q, q, q, stats[:, :, :4], stats + 1, stats)
