@@ -119,6 +119,25 @@ class Smoke:
         e1.synchronize()
         return e0.elapsed_time(e1) / iters
 
+    def device_ms(self, fn, reps: int = 5) -> dict:
+        """Device time per call of ``fn`` by kernel (short name -> ms), from
+        torch.profiler over ``reps`` calls after a warm-up: without the
+        host's launch overhead, which the event-timed loop of ``cuda_ms``
+        includes whenever it exceeds the kernels' time."""
+        from torch.profiler import ProfilerActivity, profile
+
+        fn()
+        self.torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            self.torch.cuda.synchronize()
+        out: dict = {}
+        for e, us in _device_events(prof):
+            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+            out[name] = out.get(name, 0.0) + us / 1e3 / reps
+        return out
+
     def phase(self, name: str, fn) -> None:
         self.log(f"== {name}")
         t0 = time.perf_counter()
@@ -128,6 +147,31 @@ class Smoke:
             self.log(traceback.format_exc())
             self.failures.append(f"{name}: exception")
         self.log(f"   ({name}: {time.perf_counter() - t0:.1f} s wall)")
+
+
+def _ptxas_summary(log):
+    """One entry per kernel of nvcc's ``-Xptxas -v`` report: the kernel and
+    its template arguments, registers and spill bytes."""
+    import re
+
+    out, name, spill = [], None, ""
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = re.search(r"((?:attn|sim|knn)\w*?_kernel)(I\w*?EE)?", m.group(1))
+            args = [] if not k else [
+                {"13__nv_bfloat16": "bf16", "f": "f32"}.get(t, t[2:-1])
+                for t in re.findall(r"13__nv_bfloat16|Li\d+E|f", k.group(2) or "")]
+            name = (k.group(1) if k else m.group(1)[-40:]) + (f"<{','.join(args)}>" if args else "")
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)} B spill st/ld"
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out.append(f"{name} {m.group(1)} regs {spill}")
+            name = None
+    return out
 
 
 def _similarity_bound_ms(m, n, d, p, feat_bytes):
@@ -351,7 +395,12 @@ def main() -> int:
         plain_fused_attention,
         plain_fused_attention_bwd,
     )
-    from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd, attention_fwd
+    from multimodal_fusion_tpu_torch.ops.attention_kernel import (
+        ROUTES,
+        _route,
+        attention_bwd,
+        attention_fwd,
+    )
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
     from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -367,15 +416,23 @@ def main() -> int:
     counters = {"similarity": similarity_rect, "knn": knn, "attention": attention_fwd,
                 "attention_bwd": attention_bwd}
     main_path_launches = {name: 0 for name in counters}
+    routed = {"attention": attention_fwd, "attention_bwd": attention_bwd}  # K3, K4: counts per route
+    main_path_routes = {name: dict.fromkeys(ROUTES, 0) for name in routed}
+    route_ms = {name: {r: {} for r in ROUTES} for name in routed}  # shape label -> ms
     main_path_ms_per_slide: list = []  # phase 4's median window, read by phase 7
 
     def reset_counts():
         for fn in counters.values():
             fn.launches = 0
+        for fn in routed.values():
+            fn.route_launches = dict.fromkeys(ROUTES, 0)
 
     def add_main_path_counts():
         for name, fn in counters.items():
             main_path_launches[name] += fn.launches
+        for name, fn in routed.items():
+            for r in ROUTES:
+                main_path_routes[name][r] += fn.route_launches[r]
 
     def check_k1(label, rf, rp, cf, cp, bf16=False, stripe=4096):
         """K1 against its plain version on the same inputs: max abs err <= 1e-5
@@ -462,9 +519,9 @@ def main() -> int:
         report = _cuda.build_all()
         s.log(f"  kernel build: {time.perf_counter() - t0:.2f} s wall (nvcc in parallel)")
         for name, info in report.items():
-            ptxas = [ln.strip() for ln in info["log"].splitlines()
-                     if "registers" in ln or "spill" in ln]
-            s.log(f"    {name}: {info['seconds']:.2f} s; " + " | ".join(ptxas))
+            s.log(f"    {name}: {info['seconds']:.2f} s")
+            for line in _ptxas_summary(info["log"]):
+                s.log(f"      {line}")
 
     # ---------------------------------------------------------------- 2
     def similarity_phase():
@@ -706,7 +763,10 @@ def main() -> int:
         f32 p can flip a rounding, and o rounds to bf16); m exact where every
         score is exact in f32 (inputs on a 1/8 grid), else within 1e-6 of
         max(|m|, 1) (the f32 rounding of the dots, summed in another
-        order); l within 1e-5 relative; two launches bit-identical."""
+        order); l within 1e-5 relative; two launches bit-identical.  Every
+        route: the general one at the ViT and bag shapes, the narrow ones
+        (and the general one on the same inputs) at MFMF's block shapes in
+        bf16 here and in float32 in phase 11."""
         import torch.nn.functional as F
 
         rng = np.random.default_rng(8)
@@ -721,9 +781,12 @@ def main() -> int:
             qkv = draw((VIT_BATCH, VIT_TOKENS, 3, VIT_HEADS, VIT_HEAD_DIM), dtype, grid)
             return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
 
-        def check(label, q, k, v, mask=None, rate=0.0, seed=None, m_exact=False):
-            got = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
-            again = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed)
+        def check(label, q, k, v, mask=None, rate=0.0, seed=None, m_exact=False, route=None):
+            before = dict(attention_fwd.route_launches)
+            got = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed, route=route)
+            again = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed, route=route)
+            ran = [r for r in ROUTES if attention_fwd.route_launches[r] != before[r]]
+            label = f"{label} ({'/'.join(ran)} route)"
             want = plain_fused_attention(q, k, v, mask, dropout_rate=rate, seed=seed)
             torch.cuda.synchronize()
             s.check(all(torch.equal(a, b) for a, b in zip(got, again)),
@@ -750,12 +813,16 @@ def main() -> int:
             bound over the keys this call needs."""
             b, t_q, h, hd = q.shape
             ms = s.cuda_ms(lambda: attention_fwd(q, k, v))
+            dev_ms = s.device_ms(lambda: attention_fwd(q, k, v))
+            route_ms["attention"]["general"][label] = {"ms": ms, "device_ms": sum(dev_ms.values())}
             plain_ms = s.cuda_ms(lambda: plain_fused_attention(q, k, v), iters=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
             lib_ms = s.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
             bound, by = _attention_bound_ms(b, h, t_q, valid_k or k.shape[1], hd, q.element_size())
-            s.timed(f"K3 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"scaled_dot_product_attention {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})")
+            s.timed(f"K3 {label}: kernel {ms:.4f} ms (device {sum(dev_ms.values()):.4f} ms: "
+                    + ", ".join(f"{n} {t:.4f}" for n, t in dev_ms.items())
+                    + f"), plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
+                    f"bound {bound:.4f} ms ({by})")
             return ms, plain_ms, lib_ms, bound, by
 
         # (a) the ViT-L shape, f32 and bf16, q/k/v strided views of one projection
@@ -795,6 +862,18 @@ def main() -> int:
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v = draw((2, 40, 4, 64), dtype), draw((2, 300, 4, 64), dtype), draw((2, 300, 4, 64), dtype)
             check(f"[2x4, 40x300, 64] {name}, dropout 0.1", q, k, v, rate=0.1, seed=-1399772917)
+        # (d) the narrow routes in bf16 at MFMF's block shapes (64 cases x 8
+        # heads, hd 16), each against the plain version, and the general
+        # route on the same inputs; ragged masks, one case all masked
+        for t_q, t_k in ((5, 512), (5, 4096), (4096, 5)):
+            q = draw((MFMF_BATCH, t_q, MFMF_HEADS, 16), torch.bfloat16)
+            k, v = (draw((MFMF_BATCH, t_k, MFMF_HEADS, 16), torch.bfloat16) for _ in range(2))
+            mask = torch.as_tensor(np.arange(t_k)[None] < rng.integers(1, t_k + 1, (MFMF_BATCH, 1)),
+                                   device=dev)
+            mask[0] = False
+            for route in (None, "general"):
+                check(f"[64x8, {t_q}x{t_k}, 16] bf16, ragged + all-masked kv_mask", q, k, v, mask,
+                      route=route)
 
     # ---------------------------------------------------------------- 9
     vit = {}  # extractors and the timed window, read by phase 10
@@ -840,6 +919,8 @@ def main() -> int:
         s.check(attention_fwd.launches == VIT_DEPTH * n_batches,
                 f"K3 launched {VIT_DEPTH} times per batch ({attention_fwd.launches} == "
                 f"{VIT_DEPTH} x {n_batches})")
+        s.check(attention_fwd.route_launches["general"] == attention_fwd.launches,
+                f"K3 ran the general route ({attention_fwd.route_launches})")
         add_main_path_counts()  # the checks below launch K3 outside the main path
         s.check(set(feats) == set(cores) and all(
             feats[key].shape == (n, 1024) and feats[key].dtype == np.float32
@@ -904,6 +985,8 @@ def main() -> int:
             s.check(attention_fwd.launches == VIT_DEPTH * window_batches,
                     f"{label} windows: K3 launched {VIT_DEPTH} times per batch "
                     f"({attention_fwd.launches} == {VIT_DEPTH} x {window_batches})")
+            s.check(attention_fwd.route_launches["general"] == attention_fwd.launches,
+                    f"{label} windows: K3 ran the general route ({attention_fwd.route_launches})")
             rates = sorted(VIT_WINDOW / w for w in walls)
             med = VIT_WINDOW / float(np.median(walls))
             vit[f"{label}_ms_per_batch"] = float(np.median(walls)) / (VIT_WINDOW / VIT_BATCH) * 1e3
@@ -964,13 +1047,19 @@ def main() -> int:
         def randn(shape, dtype=torch.float32):
             return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev).to(dtype)
 
-        def check_k4(label, q, k, v, mask, **drop):
-            o, m, l = plain_fused_attention(q, k, v, mask, **drop)
-            do = randn(tuple(q.shape), q.dtype)
-            dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-            args = (q, k, v, do, m, l, dsum, mask)
-            got = attention_bwd(*args, **drop)
-            again = attention_bwd(*args, **drop)
+        def check_k4(label, q, k, v, mask, args=None, route=None, **drop):
+            """K4 on ``route`` (None: the shape's) against its plain version;
+            ``args`` (q, k, v, do, m, l, dsum, mask) are reused when given."""
+            if args is None:
+                o, m, l = plain_fused_attention(q, k, v, mask, **drop)
+                do = randn(tuple(q.shape), q.dtype)
+                dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+                args = (q, k, v, do, m, l, dsum, mask)
+            before = dict(attention_bwd.route_launches)
+            got = attention_bwd(*args, route=route, **drop)
+            again = attention_bwd(*args, route=route, **drop)
+            ran = [r for r in ROUTES if attention_bwd.route_launches[r] != before[r]]
+            label = f"{label} ({'/'.join(ran)} route)"
             want = plain_fused_attention_bwd(*args, **drop)
             torch.cuda.synchronize()
             s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
@@ -982,9 +1071,12 @@ def main() -> int:
             abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
             return got, args, abs_err
 
-        def check_k3(label, q, k, v, mask):
-            got = attention_fwd(q, k, v, mask)
-            again = attention_fwd(q, k, v, mask)
+        def check_k3(label, q, k, v, mask, route=None):
+            before = dict(attention_fwd.route_launches)
+            got = attention_fwd(q, k, v, mask, route=route)
+            again = attention_fwd(q, k, v, mask, route=route)
+            ran = [r for r in ROUTES if attention_fwd.route_launches[r] != before[r]]
+            label = f"{label} ({'/'.join(ran)} route)"
             want = plain_fused_attention(q, k, v, mask)
             torch.cuda.synchronize()
             s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
@@ -1015,33 +1107,56 @@ def main() -> int:
                 return None, None
             return fwd_ms, both_ms - fwd_ms
 
-        def timed(label, args, valid_keys=None, k3=False):
+        def timed(label, args, valid_keys=None, k3=False, route=None, yardsticks=True):
+            """K4's (and with ``k3`` K3's) time on ``route`` (None: the
+            shape's), with the plain versions' and SDPA's beside it when
+            ``yardsticks``, and the bounds."""
             q, k, v, do, m, l, dsum, mask = args
             bq, t_q, heads, d = q.shape
             t_k = k.shape[1]
-            ms = s.cuda_ms(lambda: attention_bwd(*args))
-            plain_ms = s.cuda_ms(lambda: plain_fused_attention_bwd(*args), iters=5)
-            fwd_lib, bwd_lib = sdpa_ms(q, k, v, do, mask)
-            ops, nbytes = _attention_bwd_work(bq, heads, t_q, t_k, d, q.element_size(), valid_keys)
-            bound, by = _bound_ms(ops, nbytes, q.element_size())
-            lib = "not measured" if bwd_lib is None else f"{bwd_lib:.4f} ms"
-            s.timed(f"K4 {label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA backward "
-                    f"{lib}, bound {bound:.4f} ms ({by}; {ops / 1e9:.3f} GFLOP, "
-                    f"{nbytes / 1e6:.1f} MB)")
+            taken = route or _route(t_q, t_k, d)
+            out = {"ms": s.cuda_ms(lambda: attention_bwd(*args, route=route)),
+                   "plain_ms": None, "library_ms": None, "k3_ms": None}
+            dev_ms = s.device_ms(lambda: attention_bwd(*args, route=route))
+            out["device_ms"] = sum(dev_ms.values())
+            route_ms["attention_bwd"][taken][label] = {"ms": out["ms"], "device_ms": out["device_ms"]}
+            fwd_lib = None
+            if yardsticks:
+                out["plain_ms"] = s.cuda_ms(lambda: plain_fused_attention_bwd(*args), iters=5)
+                fwd_lib, out["library_ms"] = sdpa_ms(q, k, v, do, mask)
+            out["ops"], out["bytes"] = _attention_bwd_work(bq, heads, t_q, t_k, d, q.element_size(),
+                                                           valid_keys)
+            bound, by = _bound_ms(out["ops"], out["bytes"], q.element_size())
+            extra = "" if not yardsticks else (
+                f", plain {out['plain_ms']:.4f} ms, SDPA backward "
+                + ("not measured" if out["library_ms"] is None else f"{out['library_ms']:.4f} ms"))
+            s.timed(f"K4 {label} ({taken} route): kernel {out['ms']:.4f} ms (device "
+                    f"{out['device_ms']:.4f} ms: " + ", ".join(f"{n} {t:.4f}" for n, t in dev_ms.items())
+                    + f"){extra}, bound "
+                    f"{bound:.4f} ms ({by}; {out['ops'] / 1e9:.3f} GFLOP, {out['bytes'] / 1e6:.1f} MB)")
             if k3:
-                k3_ms = s.cuda_ms(lambda: attention_fwd(q, k, v, mask))
-                k3_plain = s.cuda_ms(lambda: plain_fused_attention(q, k, v, mask), iters=5)
+                out["k3_ms"] = s.cuda_ms(lambda: attention_fwd(q, k, v, mask, route=route))
+                dev3 = s.device_ms(lambda: attention_fwd(q, k, v, mask, route=route))
+                out["k3_device_ms"] = sum(dev3.values())
+                route_ms["attention"][taken][label] = {"ms": out["k3_ms"], "device_ms": out["k3_device_ms"]}
                 kv = t_k if valid_keys is None else valid_keys / bq
-                k3_bound, k3_by = _attention_bound_ms(bq, heads, t_q, kv, d, q.element_size())
-                lib3 = "not measured" if fwd_lib is None else f"{fwd_lib:.4f} ms"
-                s.timed(f"K3 {label}: kernel {k3_ms:.4f} ms, plain {k3_plain:.4f} ms, SDPA "
-                        f"{lib3}, bound {k3_bound:.4f} ms ({k3_by})")
-            return ms, plain_ms, bwd_lib, ops, nbytes
+                out["k3_bound"], k3_by = _attention_bound_ms(bq, heads, t_q, kv, d, q.element_size())
+                extra = ""
+                if yardsticks:
+                    k3_plain = s.cuda_ms(lambda: plain_fused_attention(q, k, v, mask), iters=5)
+                    extra = f", plain {k3_plain:.4f} ms, SDPA " + (
+                        "not measured" if fwd_lib is None else f"{fwd_lib:.4f} ms")
+                s.timed(f"K3 {label} ({taken} route): kernel {out['k3_ms']:.4f} ms (device "
+                        f"{out['k3_device_ms']:.4f} ms: " + ", ".join(f"{n} {t:.4f}" for n, t in dev3.items())
+                        + f"){extra}, bound "
+                        f"{out['k3_bound']:.4f} ms ({k3_by})")
+            return out
 
         # (a) MFMF's three blocks at mfmf_config0 width, 64 cases: 5 tabular
         # tokens against 8 markers' 64-row buckets (9-16 valid each), against
         # the 4096-bucket WSI bag (2048-4096 valid), and the reconstructed
-        # bag's 4096 tokens against the 5 result tokens (no key mask)
+        # bag's 4096 tokens against the 5 result tokens (no key mask).  Each
+        # on its own (narrow) route and on the general route, same inputs.
         markers = torch.as_tensor(np.concatenate(
             [np.arange(64)[None] < rng.integers(MFMF_TMA[0], MFMF_TMA[1] + 1, (b, 1))
              for _ in range(8)], axis=1), device=dev)
@@ -1050,53 +1165,78 @@ def main() -> int:
         blocks = [("block 1 other->tma [64x8, 5x512, 16]", 5, 512, markers),
                   ("block 2 result->wsi [64x8, 5x4096, 16]", 5, 4096, wsi),
                   ("block 3 reconstruct->result [64x8, 4096x5, 16]", 4096, 5, None)]
-        window = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+        window = {"ms": 0.0, "device_ms": 0.0, "k3_device_ms": 0.0, "general_ms": 0.0, "k3_ms": 0.0,
+                  "k3_general_ms": 0.0, "k3_bound": 0.0,
+                  "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
         for label, t_q, t_k, mask in blocks:
             q, k, v = randn((b, t_q, h, hd)), randn((b, t_k, h, hd)), randn((b, t_k, h, hd))
-            check_k3(label, q, k, v, mask)
+            for route in (None, "general"):
+                check_k3(label, q, k, v, mask, route=route)
             _, args, err = check_k4(label, q, k, v, mask)
+            check_k4(label, q, k, v, mask, args=args, route="general")
             valid = None if mask is None else int(mask.sum())
-            ms, plain_ms, lib_ms, ops, nbytes = timed(label, args, valid, k3=True)
-            window["ms"] += ms
-            window["plain_ms"] += plain_ms
-            window["library_ms"] = None if lib_ms is None or window["library_ms"] is None \
-                else window["library_ms"] + lib_ms
-            window["ops"] += ops
-            window["bytes"] += nbytes
+            own = timed(label, args, valid, k3=True)
+            general = timed(label, args, valid, k3=True, route="general", yardsticks=False)
+            window["ms"] += own["ms"]
+            window["device_ms"] += own["device_ms"]
+            window["k3_device_ms"] += own["k3_device_ms"]
+            window["general_ms"] += general["ms"]
+            window["k3_ms"] += own["k3_ms"]
+            window["k3_general_ms"] += general["k3_ms"]
+            window["k3_bound"] += own["k3_bound"]
+            window["plain_ms"] += own["plain_ms"]
+            window["library_ms"] = None if own["library_ms"] is None or window["library_ms"] is None \
+                else window["library_ms"] + own["library_ms"]
+            window["ops"] += own["ops"]
+            window["bytes"] += own["bytes"]
             window["err"] = max(window["err"], err)
         bound, by = _bound_ms(window["ops"], window["bytes"], 4)
-        s.timed(f"K4, one MFMF train window (the three blocks): kernel {window['ms']:.4f} ms, "
+        s.timed(f"K4, one MFMF train window (the three blocks): narrow routes {window['ms']:.4f} ms "
+                f"(device {window['device_ms']:.4f} ms), general route {window['general_ms']:.4f} ms, "
                 f"plain {window['plain_ms']:.4f} ms, bound {bound:.4f} ms ({by})")
+        s.timed(f"K3, one MFMF window (the three blocks): narrow routes {window['k3_ms']:.4f} ms "
+                f"(device {window['k3_device_ms']:.4f} ms), general route {window['k3_general_ms']:.4f} "
+                f"ms, bound {window['k3_bound']:.4f} ms")
         s.kernels["attention_bwd"] = {
             "name": "attention_bwd", "route": "cuda",
             "source": "multimodal_fusion_tpu_torch/csrc/attention_bwd.cu",
             "replaces": "multimodal_fusion_tpu/ops/pallas_attention.py:373",
-            "max_abs_err": window["err"], "ms": window["ms"], "plain_ms": window["plain_ms"],
-            "bound_ms": bound, "bound_by": by, "library_ms": window["library_ms"],
+            "max_abs_err": window["err"], "ms": window["ms"], "device_ms": window["device_ms"],
+            "plain_ms": window["plain_ms"], "bound_ms": bound, "bound_by": by,
+            "library_ms": window["library_ms"],
         }
         # (b) the bench's gradient shape (bench.py:765-785), f32 and bf16
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v = (randn((1, 4096, 8, 64), dtype) for _ in range(3))
             _, args, _ = check_k4(f"bag [1x8, 4096, 64] {name}", q, k, v, None)
             timed(f"bag [1x8, 4096, 64] {name}", args)
-        # (c) dropout 0.1 with one seed per case, at block 2's shape
+        # (c) dropout 0.1 with one seed per case, at block 2's shape, on
+        # both routes
         seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=dev)
+        drop = dict(dropout_rate=0.1, seed=seeds)
         q, k, v = randn((b, 5, h, hd)), randn((b, 4096, h, hd)), randn((b, 4096, h, hd))
-        got_f = attention_fwd(q, k, v, wsi, dropout_rate=0.1, seed=seeds)
-        want_f = plain_fused_attention(q, k, v, wsi, dropout_rate=0.1, seed=seeds)
-        o_err = float((got_f[0] - want_f[0]).abs().max())
-        s.check(o_err <= 2e-5, f"K3 block 2, dropout 0.1, per-case seeds: o max abs err "
-                               f"{o_err:.2e} <= 2e-05")
-        check_k4("block 2, dropout 0.1, per-case seeds", q, k, v, wsi, dropout_rate=0.1, seed=seeds)
+        want_f = plain_fused_attention(q, k, v, wsi, **drop)
+        args = None
+        for route in (None, "general"):
+            got_f = attention_fwd(q, k, v, wsi, route=route, **drop)
+            o_err = float((got_f[0] - want_f[0]).abs().max())
+            s.check(o_err <= 2e-5, f"K3 block 2, dropout 0.1, per-case seeds ({route or 'narrow_q'} "
+                                   f"route): o max abs err {o_err:.2e} <= 2e-05")
+            _, args, _ = check_k4("block 2, dropout 0.1, per-case seeds", q, k, v, wsi, args=args,
+                                  route=route, **drop)
         # (d) an all-masked bag: zero dq and dk, dv through the uniform p
         mask = torch.ones((2, 4096), dtype=torch.bool, device=dev)
         mask[1] = False
         q, k, v = randn((2, 5, h, hd)), randn((2, 4096, h, hd)), randn((2, 4096, h, hd))
-        got, args, _ = check_k4("[2x8, 5x4096, 16], bag 1 all masked", q, k, v, mask)
-        uniform = args[3][1].sum(0, keepdim=True).expand(4096, -1, -1) / 4096  # sum_q do / Tk
-        u_err = float((got[2][1] - uniform).abs().max())
-        s.check(not got[0][1].any() and not got[1][1].any() and u_err <= 1e-6,
-                f"K4 all-masked bag: dq = dk = 0, dv = sum_q do / Tk within {u_err:.2e} <= 1e-6")
+        args = None
+        for route in (None, "general"):
+            got, args, _ = check_k4("[2x8, 5x4096, 16], bag 1 all masked", q, k, v, mask, args=args,
+                                    route=route)
+            uniform = args[3][1].sum(0, keepdim=True).expand(4096, -1, -1) / 4096  # sum_q do / Tk
+            u_err = float((got[2][1] - uniform).abs().max())
+            s.check(not got[0][1].any() and not got[1][1].any() and u_err <= 1e-6,
+                    f"K4 all-masked bag ({route or 'narrow_q'} route): dq = dk = 0, dv = sum_q do / Tk "
+                    f"within {u_err:.2e} <= 1e-6")
 
     # ---------------------------------------------------------------- 12
     mfmf = {}  # trainer, model, tables and timing window, read by phase 13
@@ -1148,6 +1288,13 @@ def main() -> int:
             s.check(attention_fwd.launches == 3 * (n_train + n_eval),
                     f"device_data={device_data}: K3 launched 3 times per train and eval window "
                     f"({attention_fwd.launches} == 3 x ({n_train} + {n_eval}))")
+            # blocks 1 and 2 (5 rows against 512 and 4096 keys) take narrow_q,
+            # block 3 (4096 rows against 5 keys) narrow_k
+            want_fwd = {"general": 0, "narrow_q": 2 * (n_train + n_eval), "narrow_k": n_train + n_eval}
+            want_bwd = {"general": 0, "narrow_q": 2 * n_train, "narrow_k": n_train}
+            s.check(attention_fwd.route_launches == want_fwd and attention_bwd.route_launches == want_bwd,
+                    f"device_data={device_data}: routes K3 {attention_fwd.route_launches}, K4 "
+                    f"{attention_bwd.route_launches} (want {want_fwd}, {want_bwd})")
             out = td / f"device_data_{device_data}"
             s.check(all((out / n).exists() for n in ("splits_0.csv", "fold_0_epochs.csv",
                                                      "fold_0_summary.json")),
@@ -1314,6 +1461,9 @@ def main() -> int:
     for name, launches in main_path_launches.items():
         if name in s.kernels:
             s.kernels[name]["launches"] = launches
+            if name in routed:  # per route: main-path launches and times by shape
+                s.kernels[name]["routes"] = {
+                    r: {"launches": main_path_routes[name][r], "ms": route_ms[name][r]} for r in ROUTES}
         s.check(launches >= 1, f"{name} kernel launched on the main path ({launches})")
     missing = set(counters) - set(s.kernels)
     if missing:

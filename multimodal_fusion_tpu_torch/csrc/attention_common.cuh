@@ -1,20 +1,46 @@
 // Pieces shared by the fused-attention forward (attention.cu, K3) and
-// backward (attention_bwd.cu, K4): tile sizes, the mask constants, the
-// per-column key state and the hash dropout mask.
+// backward (attention_bwd.cu, K4): tile sizes, the routes, the mask
+// constants, the per-column key state, the hash dropout mask and the
+// 16-dim row-slice loads of the narrow routes.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace mmf_attn {
 
-constexpr int BQ = 64;    // query rows per tile
-constexpr int BKV = 64;   // keys per shared-memory tile
+constexpr int BQ = 64;    // query rows per tile (general routes)
+constexpr int BKV = 64;   // keys per shared-memory tile (general routes)
 constexpr int NT = 128;   // threads per block (4 warps)
 constexpr float kNegInf = -1e9f;     // ops.masked.NEG_INF
 constexpr float kInitMax = -1e30f;   // running-max start
 constexpr int8_t kValid = 0, kMasked = 1, kOutside = 2;
+
+// Routes, chosen by the wrapper (ops/attention_kernel.py:_route, which
+// mirrors NARROW).  A narrow route keeps the narrow side (<= NARROW rows of
+// q or keys) whole in shared memory and spreads the long side over the
+// threads, HD / 16 lanes per long-side row, 16 dims per lane.
+constexpr int kRouteGeneral = 0, kRouteNarrowQ = 1, kRouteNarrowK = 2;
+constexpr int NARROW = 16;
+
+// the narrow routes' head-dim instantiations: hd padded to 16, 32, 64 or 128
+inline int narrow_hd(int hd) { return hd <= 16 ? 16 : hd <= 32 ? 32 : hd <= 64 ? 64 : 128; }
+
+template <int HD>
+struct NarrowRows {
+  static constexpr int LANES = HD / 16;    // lanes per long-side row
+  static constexpr int ROWS = NT / LANES;  // long-side rows per block
+};
+
+// long-side chunks (blocks) of a narrow route
+inline int narrow_chunks(int long_len, int hd) {
+  const int rows = NT / (narrow_hd(hd) / 16);
+  return (long_len + rows - 1) / rows;
+}
 
 // pallas_attention._keep_mask at one absolute (head, q, k) index: keep iff
 // fmix32((h*Tq + q)*Tk + k) * 0x9E3779B9 + seed) >= threshold, in uint32
@@ -37,28 +63,183 @@ __device__ __forceinline__ uint32_t case_seed(const int* seeds, uint32_t seed, i
   return seeds != nullptr ? static_cast<uint32_t>(seeds[b]) : seed;
 }
 
+// the state of key gk of batch element b: valid, user-masked, or past Tk
+__device__ __forceinline__ int8_t key_state(const uint8_t* mask, long long mask_sb, int Tk, int b,
+                                            int gk) {
+  if (gk >= Tk) return kOutside;
+  return (mask != nullptr && mask[b * mask_sb + gk] == 0) ? kMasked : kValid;
+}
+
 // column states of one key tile: valid, user-masked, or past Tk
 __device__ __forceinline__ void load_colstate(const uint8_t* mask, long long mask_sb, int Tk, int b,
                                               int k0, int8_t* colstate) {
   const int tid = threadIdx.x;
-  if (tid < BKV) {
-    const int gk = k0 + tid;
-    int8_t st = kValid;
-    if (gk >= Tk) {
-      st = kOutside;
-    } else if (mask != nullptr && mask[b * mask_sb + gk] == 0) {
-      st = kMasked;
+  if (tid < BKV) colstate[tid] = key_state(mask, mask_sb, Tk, b, k0 + tid);
+}
+
+// Dynamic shared memory above 48 KB needs the opt-in, once per kernel and
+// device (the attribute stays set), not at every launch.
+template <auto Kernel>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  static std::atomic<uint64_t> done{0};  // one bit per device
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const uint64_t bit = 1ull << (dev & 63);
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+__device__ __forceinline__ float to_f(float x) { return x; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+// round to the operand dtype T (a no-op for float32)
+template <typename T>
+__device__ __forceinline__ float round_to(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ void store(float* ptr, float x) { *ptr = x; }
+__device__ __forceinline__ void store(__nv_bfloat16* ptr, float x) { *ptr = __float2bfloat16_rn(x); }
+
+// Dims [d0, d0 + 16) of one row as float32, zero at and past hd.  The row
+// is 16-byte aligned (the wrapper guarantees it for every input row), so a
+// 16-byte chunk that lies inside hd is one vector load.
+__device__ __forceinline__ void load_slice(float (&x)[16], const float* row, int d0, int hd) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int d = d0 + 4 * c;
+    if (d + 4 <= hd) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row + d));
+      x[4 * c] = v.x;
+      x[4 * c + 1] = v.y;
+      x[4 * c + 2] = v.z;
+      x[4 * c + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[4 * c + e] = d + e < hd ? row[d + e] : 0.f;
     }
-    colstate[tid] = st;
   }
 }
 
-// dynamic shared memory above 48 KB needs the opt-in
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
+__device__ __forceinline__ void load_slice(float (&x)[16], const __nv_bfloat16* row, int d0, int hd) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int d = d0 + 8 * c;
+    if (d + 8 <= hd) {
+      const uint4 v = __ldg(reinterpret_cast<const uint4*>(row + d));
+      const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const __nv_bfloat162 pair = *reinterpret_cast<const __nv_bfloat162*>(&w[e]);
+        x[8 * c + 2 * e] = __low2float(pair);
+        x[8 * c + 2 * e + 1] = __high2float(pair);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x[8 * c + e] = d + e < hd ? __bfloat162float(row[d + e]) : 0.f;
+    }
+  }
+}
+
+// Dims [d0, d0 + 16) of an output row (contiguous [.., hd]), those below hd.
+// ``vec``: rows are 16-byte aligned (hd * sizeof(T) is a multiple of 16).
+__device__ __forceinline__ void store_slice(float* row, const float (&x)[16], int d0, int hd, bool vec) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int d = d0 + 4 * c;
+    if (vec && d + 4 <= hd) {
+      *reinterpret_cast<float4*>(row + d) = make_float4(x[4 * c], x[4 * c + 1], x[4 * c + 2], x[4 * c + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < hd) row[d + e] = x[4 * c + e];
+    }
+  }
+}
+
+__device__ __forceinline__ void store_slice(__nv_bfloat16* row, const float (&x)[16], int d0, int hd,
+                                            bool vec) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int d = d0 + 8 * c;
+    if (vec && d + 8 <= hd) {
+      uint32_t w[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        __nv_bfloat162 pair = __floats2bfloat162_rn(x[8 * c + 2 * e], x[8 * c + 2 * e + 1]);
+        w[e] = *reinterpret_cast<uint32_t*>(&pair);
+      }
+      *reinterpret_cast<uint4*>(row + d) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (d + e < hd) row[d + e] = __float2bfloat16_rn(x[8 * c + e]);
+    }
+  }
+}
+
+// Sum over the LANES lanes of one long-side row (consecutive lanes of a
+// warp), in a fixed butterfly order; every lane gets the sum.  Every lane
+// of the warp must call it.
+template <int LANES>
+__device__ __forceinline__ float lane_sum(float x) {
+#pragma unroll
+  for (int off = 1; off < LANES; off <<= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+// dot of two 16-dim slices, summed in dim order
+__device__ __forceinline__ float dot16(const float (&a)[16], const float* b) {
+  float s = 0.f;
+#pragma unroll
+  for (int d = 0; d < 16; d += 4) {
+    const float4 v = *reinterpret_cast<const float4*>(b + d);
+    s = fmaf(a[d], v.x, s);
+    s = fmaf(a[d + 1], v.y, s);
+    s = fmaf(a[d + 2], v.z, s);
+    s = fmaf(a[d + 3], v.w, s);
+  }
+  return s;
+}
+
+// The narrow routes' sum over the long side of a block, staged in shared
+// memory: out[j][d] = sum_r W[r * ldw + j] * X[r * ldx + d] for j < nj,
+// d < HD, r < n_rows.  Each warp takes groups of (j, 4 dims) in turn; lane
+// l sums rows l, l + 32, ... in order, then a butterfly over the warp adds
+// the lanes, so the order is fixed.  ldx / 4 is odd: the float4 reads of
+// eight lanes hit eight bank groups.  emit(j, d, sum) runs on every lane.
+template <int HD, typename Emit>
+__device__ __forceinline__ void staged_sum(const float* W, int ldw, const float* X, int ldx, int n_rows,
+                                           int nj, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  for (int grp = threadIdx.x >> 5; grp < nj * (HD / 4); grp += NT / 32) {
+    const int j = grp / (HD / 4), d = (grp % (HD / 4)) * 4;
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = lane; r < n_rows; r += 32) {
+      const float w = W[r * ldw + j];
+      const float4 x = *reinterpret_cast<const float4*>(&X[r * ldx + d]);
+      a.x = fmaf(w, x.x, a.x);
+      a.y = fmaf(w, x.y, a.y);
+      a.z = fmaf(w, x.z, a.z);
+      a.w = fmaf(w, x.w, a.w);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      a.x += __shfl_xor_sync(0xffffffffu, a.x, off);
+      a.y += __shfl_xor_sync(0xffffffffu, a.y, off);
+      a.z += __shfl_xor_sync(0xffffffffu, a.z, off);
+      a.w += __shfl_xor_sync(0xffffffffu, a.w, off);
+    }
+    emit(j, d, a);
+  }
 }
 
 }  // namespace mmf_attn

@@ -9,12 +9,23 @@ at :553 from ``_fused_attention_bwd_hxd``).  ``attention_fwd`` and
 (``ops.attention.plain_fused_attention``, ``plain_fused_attention_bwd``)
 on CPU tensors; on a CUDA tensor they launch the kernel or raise.
 ``attention_fwd.launches`` and ``attention_bwd.launches`` count the
-wrapper calls that launched (K4 is two kernel launches behind one call).
+wrapper calls that launched (one call may be two kernel launches), and
+``.route_launches`` counts them per route.
 
-The kernels read q, k, v (and do) in place through their strides (the
-head dim must be contiguous), so slices of a fused [B, T, 3, H, hd]
-projection go in without a copy.  o, dq, dk and dv come back contiguous
-[B, T, H, hd] (or [T, H, hd]) in the input dtype; m, l and dsum are
+Routes (``_route``): where one side is at most ``NARROW`` (16) rows or
+keys, the narrow routes keep that side whole in shared memory and spread
+the long side over the threads (``narrow_q``: Tq <= 16, MFMF's blocks 1
+and 2; ``narrow_k``: Tk <= 16, its block 3); otherwise the general route
+tiles both sides (the ViT).  ``route=`` forces one, as the card tests do to
+hold the routes against each other on the same inputs.
+
+The kernels read q, k, v (and do) in place through their strides when
+every row is 16-byte aligned (the head dim contiguous, the base pointer
+and each stride a multiple of 16 bytes), so slices of a fused [B, T, 3, H,
+hd] projection go in without a copy; otherwise the wrapper copies the
+tensor to a contiguous one with hd padded to 16 bytes.  o, dq, dk and dv
+come back contiguous [B, T, H, hd] (or [T, H, hd]) in the input dtype; m,
+l and dsum are
 float32 [B, H, Tq] (or [H, Tq]).  The dropout seed is one int32 for the
 batch or an int32 tensor [B] of per-case seeds.
 """
@@ -22,6 +33,7 @@ batch or an int32 tensor [B] of per-case seeds.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -36,29 +48,87 @@ from multimodal_fusion_tpu_torch.ops.attention import (
 )
 
 MAX_HEAD_DIM = 128
+NARROW = 16  # mirrors csrc/attention_common.cuh: NARROW
+ROUTES = ("general", "narrow_q", "narrow_k")  # index = the C entries' route code
+
+
+def _route(t_q: int, t_k: int, hd: int) -> str:
+    """The kernels' route for a shape: ``narrow_k`` when Tk <= NARROW and
+    Tk <= Tq, ``narrow_q`` when Tq <= NARROW (and Tq < Tk), else
+    ``general``."""
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"attention: head dim {hd} > {MAX_HEAD_DIM}")
+    if min(t_q, t_k) > NARROW:
+        return "general"
+    return "narrow_k" if t_k <= t_q else "narrow_q"
+
+
+def _check_route(route: Optional[str], t_q: int, t_k: int, hd: int) -> str:
+    """``route`` itself if the shape allows it, the shape's route if None."""
+    by_shape = _route(t_q, t_k, hd)
+    if route is None:
+        return by_shape
+    if route not in ROUTES:
+        raise ValueError(f"attention: unknown route {route!r}, expected one of {ROUTES}")
+    if (route == "narrow_q" and t_q > NARROW) or (route == "narrow_k" and t_k > NARROW):
+        raise ValueError(f"attention: route {route!r} needs its narrow side <= {NARROW}, got "
+                         f"Tq {t_q}, Tk {t_k}")
+    return route
 
 
 _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
+_WORKSPACE_ARGS = [ctypes.c_int] * 6
 
 
+@functools.cache  # loaded and typed once per process
 def _lib():
     lib = _cuda.load("attention")
     fn = lib.mmf_attention_fwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10 + _TAIL
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10 + _TAIL
     )
     fn.restype = ctypes.c_int
+    lib.mmf_attention_fwd_workspace.argtypes = _WORKSPACE_ARGS
+    lib.mmf_attention_fwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
+@functools.cache
 def _bwd_lib():
     lib = _cuda.load("attention_bwd")
     fn = lib.mmf_attention_bwd
     fn.argtypes = (
-        [ctypes.c_int] + [ctypes.c_void_p] * 12 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13 + _TAIL
+        [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13 + _TAIL
     )
     fn.restype = ctypes.c_int
+    lib.mmf_attention_bwd_workspace.argtypes = _WORKSPACE_ARGS
+    lib.mmf_attention_bwd_workspace.restype = ctypes.c_longlong
     return lib
+
+
+# the current stream's handle without building a torch.cuda.Stream (the
+# call PyTorch's own generated kernels make); the public route otherwise
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _call(device, fn, *args):
+    """``fn(*args, stream)`` on PyTorch's current stream of ``device``,
+    made the current device for the call if it is not."""
+    current = torch.cuda.current_device()
+    if device.index is not None and device.index != current:
+        with torch.cuda.device(device):
+            return fn(*args, torch.cuda.current_stream().cuda_stream)
+    stream = _raw_stream(current) if _raw_stream else torch.cuda.current_stream().cuda_stream
+    return fn(*args, stream)
+
+
+def _workspace(size_fn, code, b, heads, t_q, t_k, hd, device):
+    """(float32 workspace kept alive, its pointer) of ``size_fn``'s bytes."""
+    nbytes = int(size_fn(code, b, heads, t_q, t_k, hd))
+    if nbytes == 0:
+        return None, None
+    ws = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
+    return ws, ws.data_ptr()
 
 
 def _check_inputs(name: str, q, *others) -> None:
@@ -72,10 +142,12 @@ def _check_inputs(name: str, q, *others) -> None:
 
 
 def _mask_arg(kv_mask, t_k):
-    """(mask tensor kept alive, its pointer, its batch stride)."""
+    """(mask tensor kept alive, its pointer, its batch stride).  The kernels
+    read one byte per key, 0 = masked: the bool mask of ``batched_layout``
+    as it is."""
     if kv_mask is None:
         return None, None, 0
-    kv_mask = kv_mask.to(torch.uint8).contiguous()
+    kv_mask = kv_mask.contiguous()
     return kv_mask, kv_mask.data_ptr(), (t_k if kv_mask.shape[0] > 1 else 0)
 
 
@@ -92,8 +164,24 @@ def _seed_args(seed, rate, b, device):
     return None, None, int(seed) & 0xFFFFFFFF
 
 
-def _contiguous_hd(*ts):
-    return tuple(t if t.stride(-1) == 1 else t.contiguous() for t in ts)
+def _aligned_rows(*ts):
+    """Each tensor [B, T, H, hd] as it is when every row it holds starts on
+    16 bytes (base pointer and batch, token and head strides multiples of
+    16 bytes, hd contiguous), else a contiguous copy with hd zero-padded to
+    a multiple of 16 bytes (the kernels read hd from the caller and never
+    the padding)."""
+    out = []
+    for t in ts:
+        size = t.element_size()
+        if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+                and all(st * size % 16 == 0 for st in t.stride()[:3])):
+            out.append(t)
+            continue
+        per = 16 // size
+        pad = -t.shape[-1] % per
+        out.append(torch.nn.functional.pad(t, (0, pad)) if pad
+                   else t.clone(memory_format=torch.contiguous_format))
+    return tuple(out)
 
 
 def attention_fwd(
@@ -105,52 +193,54 @@ def attention_fwd(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     seed=None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(o, m, l) of K3 for q [(B,) Tq, H, hd], k and v [(B,) Tk, H, hd] and
     an optional kv_mask [(B,) Tk] (True = keep).  ``seed`` is the int32
     dropout seed or an int32 tensor [B] of per-case seeds, needed when
-    ``dropout_rate`` > 0."""
+    ``dropout_rate`` > 0.  ``route``: one of ``ROUTES``, or None for the
+    shape's own (``_route``)."""
     if q.device.type == "cpu":
+        if route is not None:  # the plain version serves every route
+            _check_route(route, q.shape[-3], k.shape[-3], q.shape[-1])
         return plain_fused_attention(q, k, v, kv_mask, scale=scale, dropout_rate=dropout_rate,
                                      seed=seed)
     _check_inputs("attention_fwd", q, k, v)
     q, k, v, kv_mask, unbatched = batched_layout(q, k, v, kv_mask)
     b, t_q, heads, hd = q.shape
     t_k = k.shape[1]
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"attention_fwd: head dim {hd} > {MAX_HEAD_DIM}")
+    route = _check_route(route, t_q, t_k, hd)
+    code = ROUTES.index(route)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     rate = float(dropout_rate)
     threshold = _drop_threshold(rate)
     seeds, seeds_ptr, seed_u32 = _seed_args(seed, rate, b, q.device)
-    q, k, v = _contiguous_hd(q, k, v)
+    q, k, v = _aligned_rows(q, k, v)
     o = torch.empty((b, t_q, heads, hd), dtype=q.dtype, device=q.device)
-    m = torch.empty((b, heads, t_q), dtype=torch.float32, device=q.device)
-    l = torch.empty((b, heads, t_q), dtype=torch.float32, device=q.device)
+    m, l = torch.empty((2, b, heads, t_q), dtype=torch.float32, device=q.device)
     kv_mask, mask_ptr, mask_sb = _mask_arg(kv_mask, t_k)
     if b * t_q * heads > 0:
         lib = _lib()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.mmf_attention_fwd(
-                int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                mask_ptr, seeds_ptr, o.data_ptr(), m.data_ptr(), l.data_ptr(),
-                b, heads, t_q, t_k, hd,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2), mask_sb,
-                float(scale), float(1.0 / (1.0 - rate)), threshold, seed_u32, int(rate > 0.0),
-                stream,
-            )
+        ws, ws_ptr = _workspace(lib.mmf_attention_fwd_workspace, code, b, heads, t_q, t_k, hd,
+                                q.device)
+        err = _call(
+            q.device, lib.mmf_attention_fwd,
+            int(q.dtype == torch.bfloat16), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            mask_ptr, seeds_ptr, o.data_ptr(), m.data_ptr(), l.data_ptr(), ws_ptr,
+            b, heads, t_q, t_k, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], mask_sb,
+            float(scale), float(1.0 / (1.0 - rate)), threshold, seed_u32, int(rate > 0.0),
+        )
         _cuda.check(err, "attention kernel")
         attention_fwd.launches += 1
+        attention_fwd.route_launches[route] += 1
     if unbatched:
         return o[0], m[0], l[0]
     return o, m, l
 
 
 attention_fwd.launches = 0
+attention_fwd.route_launches = dict.fromkeys(ROUTES, 0)
 
 
 def attention_bwd(
@@ -166,11 +256,15 @@ def attention_bwd(
     scale: Optional[float] = None,
     dropout_rate: float = 0.0,
     seed=None,
+    route: Optional[str] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of K4 for q and do [(B,) Tq, H, hd], k and v
     [(B,) Tk, H, hd], the forward's m and l and dsum = rowsum(do * o)
-    (float32 [(B,) H, Tq]), the forward's kv_mask and dropout seed."""
+    (float32 [(B,) H, Tq]), the forward's kv_mask and dropout seed.
+    ``route``: one of ``ROUTES``, or None for the shape's own."""
     if q.device.type == "cpu":
+        if route is not None:  # the plain version serves every route
+            _check_route(route, q.shape[-3], k.shape[-3], q.shape[-1])
         return plain_fused_attention_bwd(q, k, v, do, m, l, dsum, kv_mask, scale=scale,
                                          dropout_rate=dropout_rate, seed=seed)
     _check_inputs("attention_bwd", q, k, v, do)
@@ -188,39 +282,38 @@ def attention_bwd(
                              f"[{b}, {heads}, {t_q}] on {q.device}")
         stats.append(t.to(torch.float32).contiguous())
     m, l, dsum = stats
-    if hd > MAX_HEAD_DIM:
-        raise ValueError(f"attention_bwd: head dim {hd} > {MAX_HEAD_DIM}")
+    route = _check_route(route, t_q, t_k, hd)
+    code = ROUTES.index(route)
     if scale is None:
         scale = 1.0 / (hd ** 0.5)
     rate = float(dropout_rate)
     threshold = _drop_threshold(rate)
     seeds, seeds_ptr, seed_u32 = _seed_args(seed, rate, b, q.device)
-    q, k, v, do = _contiguous_hd(q, k, v, do)
+    q, k, v, do = _aligned_rows(q, k, v, do)
     dq = torch.empty((b, t_q, heads, hd), dtype=q.dtype, device=q.device)
     dk = torch.empty((b, t_k, heads, hd), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, t_k, heads, hd), dtype=q.dtype, device=q.device)
     kv_mask, mask_ptr, mask_sb = _mask_arg(kv_mask, t_k)
     if b * heads * (t_q + t_k) > 0:
         lib = _bwd_lib()
-        with torch.cuda.device(q.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = lib.mmf_attention_bwd(
-                int(q.dtype == torch.bfloat16), q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                do.data_ptr(), mask_ptr, seeds_ptr, m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                b, heads, t_q, t_k, hd,
-                q.stride(0), q.stride(1), q.stride(2),
-                k.stride(0), k.stride(1), k.stride(2),
-                v.stride(0), v.stride(1), v.stride(2),
-                do.stride(0), do.stride(1), do.stride(2), mask_sb,
-                float(scale), float(1.0 / (1.0 - rate)), threshold, seed_u32, int(rate > 0.0),
-                stream,
-            )
+        ws, ws_ptr = _workspace(lib.mmf_attention_bwd_workspace, code, b, heads, t_q, t_k, hd,
+                                q.device)
+        err = _call(
+            q.device, lib.mmf_attention_bwd,
+            int(q.dtype == torch.bfloat16), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            do.data_ptr(), mask_ptr, seeds_ptr, m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws_ptr,
+            b, heads, t_q, t_k, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
+            *do.stride()[:3], mask_sb,
+            float(scale), float(1.0 / (1.0 - rate)), threshold, seed_u32, int(rate > 0.0),
+        )
         _cuda.check(err, "attention backward kernel")
         attention_bwd.launches += 1
+        attention_bwd.route_launches[route] += 1
     if unbatched:
         return dq[0], dk[0], dv[0]
     return dq, dk, dv
 
 
 attention_bwd.launches = 0
+attention_bwd.route_launches = dict.fromkeys(ROUTES, 0)

@@ -22,7 +22,14 @@ import torch
 from multimodal_fusion_tpu.ops import pallas_attention as jpa
 from multimodal_fusion_tpu.ops.masked import NEG_INF as JAX_NEG_INF
 from multimodal_fusion_tpu_torch.ops import attention as tpa
-from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_fwd
+from multimodal_fusion_tpu_torch.ops.attention_kernel import (
+    NARROW,
+    ROUTES,
+    _check_route,
+    _route,
+    attention_bwd,
+    attention_fwd,
+)
 from multimodal_fusion_tpu_torch.ops.masked import NEG_INF
 
 
@@ -70,6 +77,13 @@ def _check_stats(got, want, o_tol=2e-5):
         (8, 100, 4, 32),  # cross-attention, tiny q
         (16, 16, 2, 16),  # aligned small
         (40, 1100, 2, 8),  # three 512-key chunks, the last one ragged
+        # the forms the narrow routes serve (MFMF: 5 tokens against a bag,
+        # a bag against 5 tokens, hd 16) and the NARROW boundary
+        (5, 1100, 2, 16),
+        (300, 5, 2, 16),
+        (1, 1, 2, 16),
+        (24, 16, 2, 16),
+        (24, 17, 2, 16),
     ],
 )
 def test_plain_fused_attention_matches_jax_kernel(tq, tk, heads, hd):
@@ -100,6 +114,79 @@ def test_plain_fused_attention_all_masked_row(magnitude):
     np.testing.assert_allclose(got[0], np.broadcast_to(v.mean(0), got[0].shape), rtol=2e-5, atol=2e-5)
     pmask = np.random.default_rng(2).random(24) > 0.4
     _check_stats(_port(q, k, v, pmask), _jax_stats(q, k, v, pmask))
+
+
+@pytest.mark.parametrize(
+    "tq,tk,kind",
+    [
+        (5, 1100, "ragged"),  # narrow_q: three 512-key chunks, ragged valid lengths
+        (5, 40, "all"),  # narrow_q, every key masked
+        (300, 5, "ragged"),  # narrow_k
+    ],
+)
+def test_plain_fused_attention_narrow_forms_masked(tq, tk, kind):
+    """K3's plain version (what the wrapper takes for CPU tensors, on any
+    route) against the JAX kernel at the narrow routes' shapes with masks."""
+    q, k, v = _inputs(tq * tk, (tq, 2, 16), (tk, 2, 16))
+    rng = np.random.default_rng(tq + tk)
+    mask = np.arange(tk) < rng.integers(2, tk + 1) if kind == "ragged" else np.zeros(tk, bool)
+    route = _route(tq, tk, 16)
+    got = attention_fwd(*(torch.as_tensor(x) for x in (q, k, v)), torch.as_tensor(mask), route=route)
+    _check_stats(tuple(t.float().numpy() for t in got), _jax_stats(q, k, v, mask))
+    if kind == "all":
+        assert np.all(got[1].numpy() == np.float32(NEG_INF))
+
+
+@pytest.mark.parametrize(
+    "tq,tk,want",
+    [
+        (5, 512, "narrow_q"),  # MFMF block 1
+        (5, 4096, "narrow_q"),  # block 2
+        (4096, 5, "narrow_k"),  # block 3
+        (257, 257, "general"),  # the ViT
+        (1, 1, "narrow_k"),
+        (16, 16, "narrow_k"),
+        (16, 17, "narrow_q"),
+        (17, 16, "narrow_k"),
+        (17, 17, "general"),
+        (300, 16, "narrow_k"),
+        (300, 17, "general"),
+        (5, 1100, "narrow_q"),
+    ],
+)
+def test_route_boundaries(tq, tk, want):
+    assert _route(tq, tk, 16) == want
+    assert _check_route(None, tq, tk, 16) == want
+    assert _check_route("general", tq, tk, 16) == "general"  # the general route serves every shape
+
+
+def test_forced_routes_refuse_shapes_they_do_not_serve():
+    assert NARROW == 16 and ROUTES == ("general", "narrow_q", "narrow_k")
+    with pytest.raises(ValueError):
+        _check_route("narrow_q", NARROW + 1, 5, 16)
+    with pytest.raises(ValueError):
+        _check_route("narrow_k", 5, NARROW + 1, 16)
+    with pytest.raises(ValueError):
+        _check_route("flash", 5, 5, 16)
+    with pytest.raises(ValueError):
+        _route(5, 5, 136)  # head dim above 128
+    q = torch.zeros((20, 2, 16))
+    with pytest.raises(ValueError):
+        attention_fwd(q, q[:5], q[:5], route="narrow_q")
+
+
+def test_cpu_tensors_never_count_a_launch():
+    """On CPU tensors the wrappers take the plain versions, on every route,
+    and count no launch."""
+    q, k, v = (torch.as_tensor(x) for x in _inputs(12, (2, 5, 2, 16), (2, 40, 2, 16)))
+    before = (attention_fwd.launches, dict(attention_fwd.route_launches),
+              attention_bwd.launches, dict(attention_bwd.route_launches))
+    for route in (None, "general", "narrow_q"):
+        o, m, l = attention_fwd(q, k, v, route=route)
+        dsum = (o * o).sum(-1).transpose(1, 2)
+        attention_bwd(q, k, v, o, m, l, dsum, route=route)
+    assert (attention_fwd.launches, attention_fwd.route_launches,
+            attention_bwd.launches, attention_bwd.route_launches) == before
 
 
 def test_plain_fused_attention_bf16():

@@ -76,7 +76,10 @@ def _close(got, want, bf16=False):
 
 @pytest.mark.parametrize(
     "case",
-    ["self_partial_tiles", "cross_kv_mask", "all_masked", "dropout", "hd16", "hd64_three_chunks"],
+    ["self_partial_tiles", "cross_kv_mask", "all_masked", "dropout", "hd16", "hd64_three_chunks",
+     # the forms the narrow routes serve, and the NARROW boundary
+     "narrow_q_ragged_three_chunks", "narrow_k", "one_by_one", "tk16", "tk17",
+     "narrow_q_all_masked"],
 )
 def test_plain_attention_bwd_matches_jax_kernel(case):
     rng = np.random.default_rng(sum(map(ord, case)))
@@ -87,13 +90,19 @@ def test_plain_attention_bwd_matches_jax_kernel(case):
         "dropout": (70, 90, 2, 32, rng.random(90) > 0.25, 0.1, -1399772917),
         "hd16": (33, 50, 8, 16, rng.random(50) > 0.3, 0.0, None),
         "hd64_three_chunks": (40, 1100, 2, 64, None, 0.0, None),
+        "narrow_q_ragged_three_chunks": (5, 1100, 2, 16, np.arange(1100) < 777, 0.0, None),
+        "narrow_k": (300, 5, 2, 16, None, 0.0, None),
+        "one_by_one": (1, 1, 2, 16, None, 0.0, None),
+        "tk16": (24, 16, 2, 16, rng.random(16) > 0.3, 0.1, 7),
+        "tk17": (24, 17, 2, 16, rng.random(17) > 0.3, 0.1, 7),
+        "narrow_q_all_masked": (5, 40, 2, 16, np.zeros(40, bool), 0.0, None),
     }[case]
     q, do = _draw(rng, (tq, h, hd), (tq, h, hd))
     k, v = _draw(rng, (tk, h, hd), (tk, h, hd))
     want, stats = _jax_bwd(q, k, v, do, mask, rate, seed)
     got = _port_bwd(q, k, v, do, stats, mask, rate, seed)
     _close(got, want)
-    if case == "all_masked":
+    if case in ("all_masked", "narrow_q_all_masked"):
         # every score is a constant: no gradient into q or k; dv flows
         # through the uniform p
         assert not got[0].any() and not got[1].any() and np.abs(got[2]).max() > 0

@@ -12,7 +12,7 @@ import torch
 
 from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention, plain_fused_attention_bwd
-from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd, attention_fwd
+from multimodal_fusion_tpu_torch.ops.attention_kernel import ROUTES, _route, attention_bwd, attention_fwd
 from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide
 from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
 from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -332,6 +332,92 @@ def test_gradients_reach_projections_through_auto(cuda):
         g = grads[str(cuda)][name]
         assert g is not None and float(g.abs().max()) > 0, name
         assert _rel_l2(g, grads["cpu"][name]) <= 1e-4, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("side", ["q", "k"])
+@pytest.mark.parametrize("narrow", [1, 5, 16, 17])
+def test_attention_routes_match_plain(cuda, narrow, side, hd, dtype):
+    """K3 and K4 on the shape's route (narrow_q, narrow_k, or general at 17)
+    against their plain versions and against the general route on the same
+    inputs: no mask, a ragged mask with case 0 all masked, and dropout 0.1
+    with per-case seeds; two launches bit-identical; the route counters
+    show which kernel ran.  The long side is 300: several narrow blocks."""
+    rng = np.random.default_rng(narrow * 100 + hd + (side == "k"))
+    b, h, long_side = 3, 2, 300
+    tq, tk = (narrow, long_side) if side == "q" else (long_side, narrow)
+    route = _route(tq, tk, hd)
+    assert route == ("general" if narrow > 16 else f"narrow_{side}")
+    # at least 2 valid keys per case where Tk allows: over one key the
+    # softmax is a constant and dq, dk are rounding noise
+    ragged = torch.as_tensor(np.arange(tk)[None] < rng.integers(min(2, tk), tk + 1, (b, 1)),
+                             device=cuda)
+    ragged[0] = False
+    seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=cuda)
+    bar = 1e-5 if dtype == torch.float32 else 1e-2
+    for mask, drop in ((None, {}), (ragged, {}), (ragged, dict(dropout_rate=0.1, seed=seeds))):
+        args = _bwd_inputs(rng, b, tq, tk, h, hd, dtype, cuda, mask, **drop)
+        q, k, v = args[:3]
+        fwd0, bwd0 = dict(attention_fwd.route_launches), dict(attention_bwd.route_launches)
+        got = attention_fwd(q, k, v, mask, **drop)
+        again = attention_fwd(q, k, v, mask, **drop)
+        grads = attention_bwd(*args, mask, **drop)
+        grads_again = attention_bwd(*args, mask, **drop)
+        torch.cuda.synchronize()
+        assert attention_fwd.route_launches == dict(fwd0, **{route: fwd0[route] + 2})
+        assert attention_bwd.route_launches == dict(bwd0, **{route: bwd0[route] + 2})
+        assert all(torch.equal(x, y) for x, y in zip(got, again))
+        assert all(torch.equal(x, y) for x, y in zip(grads, grads_again))
+        plain = plain_fused_attention(q, k, v, mask, **drop)
+        _check_attn(got, plain, (q, k, v), mask, **drop)
+        want = plain_fused_attention_bwd(*args, mask, **drop)
+        # a softmax over one key is a constant: dq and dk are 0 in exact
+        # arithmetic and rounding noise on both sides, so at Tk = 1 they are
+        # held against the norm of dv instead of their own
+        scales = [w.float().norm() if tk > 1 else want[2].float().norm() for w in want[:2]]
+        for g, w, name, sc in zip(grads, want, ("dq", "dk", "dv"), scales + [want[2].float().norm()]):
+            assert g.dtype == dtype and g.shape == w.shape
+            err = float((g.float() - w.float()).norm() / sc.clamp_min(1e-30))
+            assert err <= bar, (name, err)
+        if mask is not None:  # case 0 all masked: m = -1e9, dq = dk = 0
+            assert torch.all(got[1][0] == -1e9)
+            assert not grads[0][0].any() and not grads[1][0].any()
+        # the general route on the same inputs, held to the same plain outputs
+        general = attention_fwd(q, k, v, mask, route="general", **drop)
+        _check_attn(general, plain, (q, k, v), mask, **drop)
+        for g, w, sc in zip(attention_bwd(*args, mask, route="general", **drop), want,
+                            scales + [want[2].float().norm()]):
+            assert float((g.float() - w.float()).norm() / sc.clamp_min(1e-30)) <= bar
+
+
+@pytest.mark.parametrize("hd", [20, 40, 64])
+def test_attention_bf16_general_route_strided_and_unaligned(cuda, hd):
+    """The general bf16 route on q/k/v views of a fused [B, T, 3, H, hd]
+    projection: read in place where every row is 16-byte aligned (hd 40,
+    64), copied to padded rows where not (hd 20: 40-byte rows)."""
+    rng = np.random.default_rng(hd)
+    qkv = torch.as_tensor(rng.standard_normal((2, 257, 3, 4, hd)).astype(np.float32),
+                          device=cuda).to(torch.bfloat16)
+    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    before = attention_fwd.route_launches["general"]
+    got = attention_fwd(q, k, v)
+    assert attention_fwd.route_launches["general"] == before + 1
+    want = plain_fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    _check_attn(got, want, (q, k, v))
+    assert torch.equal(attention_fwd(q.contiguous(), k.contiguous(), v.contiguous())[0], got[0])
+
+
+def test_attention_routes_refuse_shapes_they_do_not_serve(cuda):
+    q = torch.zeros((2, 20, 2, 16), device=cuda)
+    k = torch.zeros((2, 5, 2, 16), device=cuda)
+    with pytest.raises(ValueError):
+        attention_fwd(q, k, k, route="narrow_q")  # Tq 20 > 16
+    with pytest.raises(ValueError):
+        attention_fwd(q, q, q, route="narrow_k")  # Tk 20 > 16
+    with pytest.raises(ValueError):
+        attention_fwd(q, k, k, route="flash")
+    assert set(attention_fwd.route_launches) == set(ROUTES)
 
 
 def test_attention_bwd_raises_instead_of_falling_back(cuda):
