@@ -119,6 +119,20 @@ class Smoke:
         e1.synchronize()
         return e0.elapsed_time(e1) / iters
 
+    def host_us(self, fn, iters: int = 300, warmup: int = 20) -> float:
+        """Host time per call of ``fn`` in microseconds: no synchronisation
+        inside the timed loop, so kernels shorter than the call hide
+        behind it."""
+        for _ in range(warmup):
+            fn()
+        self.torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        t1 = time.perf_counter()
+        self.torch.cuda.synchronize()
+        return (t1 - t0) / iters * 1e6
+
     def device_ms(self, fn, reps: int = 5) -> dict:
         """Device time per call of ``fn`` by kernel (short name -> ms), from
         torch.profiler over ``reps`` calls after a warm-up: without the
@@ -832,6 +846,15 @@ def main() -> int:
             q, k, v = qkv_views(dtype)
             _, err = check(f"ViT {shape}", q, k, v)
             ms, plain_ms, lib_ms, bound, by = timed(f"ViT {shape}", q, k, v)
+            if dtype == torch.bfloat16:
+                # the 257-token edge: a fifth q tile of one row and a fifth
+                # key tile of one key, which 256 tokens do without
+                q2, k2, v2 = (x[:, :VIT_TOKENS - 1] for x in (q, k, v))
+                edge = sum(s.device_ms(lambda: attention_fwd(q2, k2, v2)).values())
+                full = route_ms["attention"]["general"][f"ViT {shape}"]["device_ms"]
+                s.timed(f"K3 ViT bf16 at {VIT_TOKENS - 1} tokens: device {edge:.4f} ms against "
+                        f"{full:.4f} ms at {VIT_TOKENS}: the edge takes {100 * (1 - edge / full):.1f}% "
+                        f"of the kernel's time")
             if dtype == torch.float32:  # the extraction's default path
                 s.kernels["attention"] = {
                     "name": "attention", "route": "cuda",
@@ -1205,6 +1228,12 @@ def main() -> int:
             "plain_ms": window["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": window["library_ms"],
         }
+        # the wrappers' own host time, which event-timed calls at MFMF's
+        # small shapes include
+        q1, st = randn((1, 8, 1, 16)), torch.zeros((1, 1, 8), device=dev)
+        s.timed(f"host time per wrapper call at [1, 8, 1, 16]: attention_fwd "
+                f"{s.host_us(lambda: attention_fwd(q1, q1, q1)):.1f} us, attention_bwd "
+                f"{s.host_us(lambda: attention_bwd(q1, q1, q1, q1, st, st + 1, st)):.1f} us")
         # (b) the bench's gradient shape (bench.py:765-785), f32 and bf16
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v = (randn((1, 4096, 8, 64), dtype) for _ in range(3))

@@ -106,20 +106,16 @@ def _bwd_lib():
     return lib
 
 
-# the current stream's handle without building a torch.cuda.Stream (the
-# call PyTorch's own generated kernels make); the public route otherwise
-_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-
-
 def _call(device, fn, *args):
     """``fn(*args, stream)`` on PyTorch's current stream of ``device``,
-    made the current device for the call if it is not."""
+    made the current device for the call if it is not.  The stream's raw
+    handle is the one PyTorch's own generated kernels take: it builds no
+    torch.cuda.Stream object."""
     current = torch.cuda.current_device()
-    if device.index is not None and device.index != current:
-        with torch.cuda.device(device):
-            return fn(*args, torch.cuda.current_stream().cuda_stream)
-    stream = _raw_stream(current) if _raw_stream else torch.cuda.current_stream().cuda_stream
-    return fn(*args, stream)
+    if device.index is None or device.index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def _workspace(size_fn, code, b, heads, t_q, t_k, hd, device):

@@ -335,7 +335,7 @@ def test_gradients_reach_projections_through_auto(cuda):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("hd", [16, 32, 64])
+@pytest.mark.parametrize("hd", [16, 20, 32, 64, 128])
 @pytest.mark.parametrize("side", ["q", "k"])
 @pytest.mark.parametrize("narrow", [1, 5, 16, 17])
 def test_attention_routes_match_plain(cuda, narrow, side, hd, dtype):
