@@ -35,6 +35,7 @@ events and stand beside the card's name and power limit.
 
 from __future__ import annotations
 
+import hashlib
 import json
 import shutil
 import subprocess
@@ -448,15 +449,20 @@ def main() -> int:
             for r in ROUTES:
                 main_path_routes[name][r] += fn.route_launches[r]
 
-    def check_k1(label, rf, rp, cf, cp, bf16=False, stripe=4096):
+    def check_k1(label, rf, rp, cf, cp, bf16=False, stripe=4096, digest=False):
         """K1 against its plain version on the same inputs: max abs err <= 1e-5
         and two launches bit-identical.  The plain version runs in row
         stripes (whole, its float64 temporaries at 32768 patches would take
         tens of GiB beside the kernel's two 4 GiB outputs); returns (err,
-        the plain K assembled in float32)."""
+        the plain K assembled in float32).  ``digest`` prints a SHA-256 of
+        the output's bytes, by which two versions of the kernel can be
+        compared bit for bit across runs."""
         out = similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf16)
         again = similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf16)
         s.check(bool(torch.equal(out, again)), f"K1 {label}: two launches bit-identical")
+        if digest:
+            s.log(f"  K1 {label}: output sha256 "
+                  f"{hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}")
         del again
         plain = torch.empty_like(out)
         err = 0.0
@@ -554,7 +560,7 @@ def main() -> int:
             ("bf16_exact [4096,4096,1024]", f_bf, p, f_bf, p, True),
         ]
         for label, rf, rp, cf, cp, bf in cases:
-            err, _ = check_k1(label, rf, rp, cf, cp, bf)
+            err, _ = check_k1(label, rf, rp, cf, cp, bf, digest=True)
             ms = s.cuda_ms(lambda: similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf))
             plain_ms = s.cuda_ms(lambda: similarity_rect_plain(rf, rp, cf, cp, 1.0, 1.0, bf))
             lib_ms = s.cuda_ms(lambda: torch.matmul(rf, cf.T))
@@ -711,6 +717,14 @@ def main() -> int:
         s.check(np.isfinite(res["host"]["K_stats"]).all(), f"{n}-patch K_stats finite")
         check_build_k1(f"[{n},{n},{DIM}] (the {n}-patch slide)", slide[0], slide[1],
                        res["host"]["K_stats"])
+        # K1 alone at this shape (the plain version's float64 temporaries
+        # would take tens of GiB here: not timed)
+        f, p = torch.as_tensor(slide[0], device=dev), torch.as_tensor(slide[1], device=dev)
+        ms = s.cuda_ms(lambda: similarity_rect(f, p, f, p), iters=3, warmup=1)
+        lib_ms = s.cuda_ms(lambda: torch.matmul(f, f.T), iters=3, warmup=1)
+        bound, bound_by = _similarity_bound_ms(n, n, DIM, p.shape[1], 4)
+        s.timed(f"K1 [{n},{n},{DIM}] f32 alone: kernel {ms:.4f} ms, torch.matmul feature dot "
+                f"{lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by})")
 
     # ---------------------------------------------------------------- 6
     def large_node_phase():
@@ -1231,9 +1245,13 @@ def main() -> int:
         # the wrappers' own host time, which event-timed calls at MFMF's
         # small shapes include
         q1, st = randn((1, 8, 1, 16)), torch.zeros((1, 1, 8), device=dev)
+        x1, p1 = randn((16, 16)), randn((16, 2))
+        sim_us = s.host_us(lambda: similarity_rect(x1, p1, x1, p1))
         s.timed(f"host time per wrapper call at [1, 8, 1, 16]: attention_fwd "
                 f"{s.host_us(lambda: attention_fwd(q1, q1, q1)):.1f} us, attention_bwd "
-                f"{s.host_us(lambda: attention_bwd(q1, q1, q1, q1, st, st + 1, st)):.1f} us")
+                f"{s.host_us(lambda: attention_bwd(q1, q1, q1, q1, st, st + 1, st)):.1f} us; "
+                f"at [16, 16]: similarity_rect {sim_us:.1f} us, knn (k 4) "
+                f"{s.host_us(lambda: knn(x1, 4)):.1f} us")
         # (b) the bench's gradient shape (bench.py:765-785), f32 and bf16
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v = (randn((1, 4096, 8, 64), dtype) for _ in range(3))

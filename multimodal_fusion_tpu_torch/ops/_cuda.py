@@ -6,7 +6,8 @@ sources at once, at the first CUDA use.  Libraries land in ``_build/`` next
 to this package (git-ignored), named by a hash of their source, so an edited
 source rebuilds and an unchanged one loads straight away.  Loading is
 ``ctypes``: every C entry takes ``void*`` pointers and the CUDA stream, and
-returns ``cudaGetLastError()`` after its launch.
+returns ``cudaGetLastError()`` after its launch.  ``call`` runs an entry on
+PyTorch's current stream and ``check`` raises on the error it returns.
 """
 
 from __future__ import annotations
@@ -20,6 +21,8 @@ import threading
 import time
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
@@ -98,6 +101,18 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(path))
         return _libs[name]
+
+
+def call(device: torch.device, fn, *args):
+    """``fn(*args, stream)`` on PyTorch's current stream of ``device``,
+    made the current device for the call if it is not.  The stream's raw
+    handle is the one PyTorch's own generated kernels take: it builds no
+    torch.cuda.Stream object."""
+    current = torch.cuda.current_device()
+    if device.index is None or device.index == current:
+        return fn(*args, torch._C._cuda_getCurrentRawStream(current))
+    with torch.cuda.device(device):
+        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def check(err: int, what: str) -> None:

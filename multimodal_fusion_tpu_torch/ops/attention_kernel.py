@@ -106,18 +106,6 @@ def _bwd_lib():
     return lib
 
 
-def _call(device, fn, *args):
-    """``fn(*args, stream)`` on PyTorch's current stream of ``device``,
-    made the current device for the call if it is not.  The stream's raw
-    handle is the one PyTorch's own generated kernels take: it builds no
-    torch.cuda.Stream object."""
-    current = torch.cuda.current_device()
-    if device.index is None or device.index == current:
-        return fn(*args, torch._C._cuda_getCurrentRawStream(current))
-    with torch.cuda.device(device):
-        return fn(*args, torch._C._cuda_getCurrentRawStream(device.index))
-
-
 def _workspace(size_fn, code, b, heads, t_q, t_k, hd, device):
     """(float32 workspace kept alive, its pointer) of ``size_fn``'s bytes."""
     nbytes = int(size_fn(code, b, heads, t_q, t_k, hd))
@@ -220,7 +208,7 @@ def attention_fwd(
         lib = _lib()
         ws, ws_ptr = _workspace(lib.mmf_attention_fwd_workspace, code, b, heads, t_q, t_k, hd,
                                 q.device)
-        err = _call(
+        err = _cuda.call(
             q.device, lib.mmf_attention_fwd,
             int(q.dtype == torch.bfloat16), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             mask_ptr, seeds_ptr, o.data_ptr(), m.data_ptr(), l.data_ptr(), ws_ptr,
@@ -294,7 +282,7 @@ def attention_bwd(
         lib = _bwd_lib()
         ws, ws_ptr = _workspace(lib.mmf_attention_bwd_workspace, code, b, heads, t_q, t_k, hd,
                                 q.device)
-        err = _call(
+        err = _cuda.call(
             q.device, lib.mmf_attention_bwd,
             int(q.dtype == torch.bfloat16), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), mask_ptr, seeds_ptr, m.data_ptr(), l.data_ptr(), dsum.data_ptr(),

@@ -13,6 +13,7 @@ the source note says what its design does about that.  Its plain version is
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -23,6 +24,7 @@ from multimodal_fusion_tpu_torch.ops.knn import knn_indices, knn_indices_blockwi
 KNN_MAX_K = 128
 
 
+@functools.cache  # loaded and typed once per process
 def _lib():
     lib = _cuda.load("knn")
     lib.mmf_knn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
@@ -44,9 +46,8 @@ def knn(x: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
     xf = x.float().contiguous()
     out_d = torch.empty((n, k), dtype=torch.float32, device=x.device)
     out_i = torch.empty((n, k), dtype=torch.int32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _lib().mmf_knn(xf.data_ptr(), out_d.data_ptr(), out_i.data_ptr(), n, d, k, stream)
+    err = _cuda.call(x.device, _lib().mmf_knn, xf.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
+                     n, d, k)
     _cuda.check(err, "knn kernel")
     knn.launches += 1
     return out_d, out_i.long()

@@ -5,7 +5,8 @@ Counterpart of ``multimodal_fusion_tpu.ops.pallas_similarity``.  The kernel
 (pallas_similarity.py:56, called at :186 from
 ``pallas_combined_similarity_rect``).  It is compute-bound on the H100 (true
 f32 FMAs for the feature dot); the source note says what its tiling does
-about that.
+about that.  It reads feature rows with 16-byte loads: ``padded_rows``
+hands it rows as they are when they allow that, else a zero-padded copy.
 
 Staging is the Pallas wrapper's: positions pre-scaled by sqrt(lambda_g),
 lambda_h folded into the row and column norms and the dot coefficient,
@@ -18,6 +19,7 @@ held against on the card.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -57,6 +59,22 @@ def similarity_rect_plain(
     return torch.exp(-arg)
 
 
+def padded_rows(x: torch.Tensor) -> torch.Tensor:
+    """Feature rows ``x`` [R, D] as K1 reads them, 16 bytes at a time: ``x``
+    itself when it is contiguous, its base pointer on 16 bytes and D a
+    multiple of 16 bytes (4 float32 or 8 bfloat16 values); otherwise a
+    contiguous copy with D zero-padded up to that multiple.  Zeros add
+    nothing to K1's dot or norms, so K is the same either way."""
+    per = 16 // x.element_size()
+    if x.is_contiguous() and x.shape[1] % per == 0 and x.data_ptr() % 16 == 0:
+        return x
+    pad = -x.shape[1] % per
+    if pad:
+        return torch.nn.functional.pad(x, (0, pad))
+    return x.clone(memory_format=torch.contiguous_format)
+
+
+@functools.cache  # loaded and typed once per process
 def _lib():
     lib = _cuda.load("similarity")
     for fn in (lib.mmf_similarity_f32, lib.mmf_similarity_bf16):
@@ -94,22 +112,22 @@ def similarity_rect(
     if any(t.device != row_features.device for t in tensors):
         raise ValueError("similarity_rect: inputs on different devices")
     feat_dtype = torch.bfloat16 if bf16_exact else torch.float32
-    fi = row_features.to(feat_dtype).contiguous()
-    fj = col_features.to(feat_dtype).contiguous()
+    # the build's square call passes each input twice: staged once
+    fi = padded_rows(row_features.to(feat_dtype))
+    fj = fi if col_features is row_features else padded_rows(col_features.to(feat_dtype))
     g_scale = float(lambda_g) ** 0.5
     pi = (row_positions.float() * g_scale).contiguous()
-    pj = (col_positions.float() * g_scale).contiguous()
+    pj = pi if col_positions is row_positions else (col_positions.float() * g_scale).contiguous()
     out = torch.empty((m, n), dtype=torch.float32, device=row_features.device)
     if m == 0 or n == 0:
         return out
     lib = _lib()
     fn = lib.mmf_similarity_bf16 if bf16_exact else lib.mmf_similarity_f32
-    with torch.cuda.device(row_features.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(
-            fi.data_ptr(), pi.data_ptr(), fj.data_ptr(), pj.data_ptr(), out.data_ptr(),
-            m, n, d, n_pos, float(lambda_h), stream,
-        )
+    err = _cuda.call(
+        row_features.device, fn,
+        fi.data_ptr(), pi.data_ptr(), fj.data_ptr(), pj.data_ptr(), out.data_ptr(),
+        m, n, fi.shape[1], n_pos, float(lambda_h),
+    )
     _cuda.check(err, "similarity kernel")
     similarity_rect.launches += 1
     return out

@@ -32,7 +32,14 @@ def cuda():
 
 
 @pytest.mark.parametrize(
-    "m,n,d,bf16", [(1, 1, 1, False), (65, 129, 17, False), (300, 257, 1000, False), (130, 70, 64, True)]
+    "m,n,d,bf16",
+    [
+        (1, 1, 1, False), (65, 129, 17, False), (300, 257, 1000, False), (130, 70, 64, True),
+        # one 128 x 128 tile and one 16-wide chunk; ragged tiles at D = 1000
+        # and D = 1023 (padded to 1024 by the wrapper)
+        (128, 128, 16, False), (129, 257, 1000, False), (257, 130, 1023, False),
+        (33, 200, 20, True), (129, 131, 1000, True),
+    ],
 )
 def test_similarity_kernel_matches_plain(cuda, m, n, d, bf16):
     rng = np.random.default_rng(m + n + d)
@@ -51,6 +58,33 @@ def test_similarity_kernel_matches_plain(cuda, m, n, d, bf16):
     assert torch.equal(out, again)  # no atomics, no split over D
     # f32 sums in another order than the plain version's float64 evaluation
     assert float((out - plain).abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_similarity_kernel_reads_row_slices(cuda, bf16):
+    """``rf[1:]`` at D = 17 starts off 16 bytes and goes through a padded
+    copy; ``rf[8:]`` at D = 16 is read in place.  Both match the plain
+    version, and a square call at lambda_h = 1 gives K == 1 exactly on the
+    diagonal (norms and dot share one summation order)."""
+    rng = np.random.default_rng(17)
+    for d, start in ((17, 1), (16, 8)):
+        full = torch.as_tensor((rng.standard_normal((300, d)) / np.sqrt(d)).astype(np.float32),
+                               device=cuda)
+        if bf16:
+            full = full.to(torch.bfloat16).float()
+        rf, cf = full[start:], full[:200]
+        rp = torch.as_tensor(rng.uniform(0, 4, (rf.shape[0], 2)).astype(np.float32), device=cuda)
+        cp = torch.as_tensor(rng.uniform(0, 4, (200, 2)).astype(np.float32), device=cuda)
+        out = similarity_rect(rf, rp, cf, cp, 0.7, 1.3, bf16)
+        plain = similarity_rect_plain(rf, rp, cf, cp, 0.7, 1.3, bf16)
+        assert float((out - plain).abs().max()) <= 1e-5
+    f, p, _ = clustered_slide(rng, 1000, 1, 1024)
+    f, p = torch.as_tensor(f, device=cuda), torch.as_tensor(p, device=cuda)
+    if bf16:
+        f = f.to(torch.bfloat16).float()
+    k = similarity_rect(f, p, f, p, 1.0, 0.5, bf16)
+    torch.cuda.synchronize()
+    assert bool((k.diagonal() == 1.0).all())
 
 
 @pytest.mark.parametrize(

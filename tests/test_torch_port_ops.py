@@ -26,7 +26,9 @@ from multimodal_fusion_tpu_torch.ops import similarity as tsim
 from multimodal_fusion_tpu_torch.ops.knn_kernel import knn, knn_indices_auto
 from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
     combined_similarity_auto,
+    padded_rows,
     similarity_rect,
+    similarity_rect_plain,
 )
 
 # the JAX ops package re-exports the function `kmeans` under the module's name
@@ -49,6 +51,13 @@ def _np(x):
         (97, 131, 37, 0.7, 0.3, False),
         (131, 70, 70, 0.4, 2.0, True),
         (64, 64, 32, 1.0, 1.0, True),
+        # K1's 128-wide tiles and 16-wide chunks: one under, at and over each
+        (127, 129, 16, 1.0, 1.0, False),
+        (128, 128, 17, 0.7, 0.3, False),
+        (129, 127, 1000, 1.0, 1.0, False),
+        (127, 127, 16, 1.0, 1.0, True),
+        (129, 128, 17, 0.5, 1.5, True),
+        (128, 129, 1000, 1.0, 1.0, True),
     ],
 )
 def test_similarity_matches_jax_and_pallas(m, n, d, lam_h, lam_g, bf16):
@@ -76,6 +85,44 @@ def test_similarity_matches_jax_and_pallas(m, n, d, lam_h, lam_g, bf16):
     np.testing.assert_allclose(port, pallas, rtol=0, atol=1e-6)
     np.testing.assert_allclose(port, xla, rtol=0, atol=1e-6)
     assert port.shape == (m, n)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["aligned", "aligned_row_slice", "row_slice", "odd_width",
+                                  "column_slice"])
+def test_padded_rows_copies_only_what_k1_cannot_read(case, dtype):
+    """K1 reads feature rows 16 bytes at a time.  Rows that allow it go in
+    as they are; others are copied once, zero-padded to a multiple of 16
+    bytes, and give the same K."""
+    gen = torch.Generator().manual_seed(len(case))
+    per = 16 // torch.empty((), dtype=dtype).element_size()
+    shape, view = {
+        "aligned": ((40, 2 * per), lambda t: t),
+        "aligned_row_slice": ((44, 16), lambda t: t[4:]),  # starts 4 rows of 16 in
+        "row_slice": ((41, 17), lambda t: t[1:]),
+        "odd_width": ((40, 1023), lambda t: t),
+        "column_slice": ((40, 24), lambda t: t[:, :16]),
+    }[case]
+    base = view(torch.randn(shape, generator=gen).to(dtype))
+    x = padded_rows(base)
+    copied = case in ("row_slice", "odd_width", "column_slice")
+    assert (x.data_ptr() != base.data_ptr()) == copied
+    assert x.is_contiguous() and x.shape[1] % per == 0 and x.data_ptr() % 16 == 0
+    d = base.shape[1]
+    assert x.shape == (base.shape[0], d + (-d % per))
+    assert torch.equal(x[:, :d], base) and not x[:, d:].any()
+
+    pos = torch.rand((base.shape[0], 2), generator=gen) * 3
+    cols, cpos = base[5:], pos[5:]
+    for bf16 in (False, True):
+        want = similarity_rect_plain(base, pos, cols, cpos, 0.7, 1.3, bf16)
+        got = similarity_rect_plain(x, pos, padded_rows(cols), cpos, 0.7, 1.3, bf16)
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    # CPU tensors take the plain version and count no kernel launch
+    before = (similarity_rect.launches, knn.launches)
+    similarity_rect(base, pos, cols, cpos)
+    knn(base.float(), 3)
+    assert (similarity_rect.launches, knn.launches) == before
 
 
 def test_square_similarity_matches_jax_combined():
