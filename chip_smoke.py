@@ -205,6 +205,19 @@ def _knn_bound_ms(n, d, k):
     )
 
 
+def _knn_two_calls(torch, x, k):
+    """A yardstick for K2 from PyTorch calls: the norm expansion in one
+    addmm, then torch.topk (no self pin, no tie order)."""
+    sq = (x * x).sum(dim=1)
+    return torch.topk(torch.addmm(sq[:, None] + sq[None, :], x, x.T, alpha=-2.0), k, dim=1,
+                      largest=False)
+
+
+def _knn_digest(d, i) -> str:
+    """SHA-256 of K2's (distances, int64 indices), first 16 hex digits."""
+    return hashlib.sha256(d.cpu().numpy().tobytes() + i.long().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def _attention_bound_ms(b, h, t_q, t_k, hd, itemsize):
     """Operations 4*B*H*Tq*Tk*hd (q k^T and P.V) at the f32 non-tensor or
     the bf16 tensor peak; bytes of q, k, v and o at the HBM rate."""
@@ -417,7 +430,7 @@ def main() -> int:
         attention_fwd,
     )
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
-    from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
+    from multimodal_fusion_tpu_torch.ops.knn import knn_indices, knn_indices_blockwise
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
     from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
         similarity_rect,
@@ -490,11 +503,13 @@ def main() -> int:
         s.check(serr <= 1e-5, f"{label}: build's K_stats vs the plain K's, max abs diff "
                               f"{serr:.2e} <= 1e-5")
 
-    def check_k2(label, x, k, exact):
+    def check_k2(label, x, k, exact, digest=False):
         """K2 against its plain version on ``x``; returns (max abs distance
         difference, the kernel's indices).  ``exact`` (integer-valued
         features: every distance exact in f32, ties many) demands identical
-        indices.
+        indices.  ``digest`` prints a SHA-256 of the (distances, indices)
+        bytes, by which two versions of the kernel can be compared bit for
+        bit across runs.
 
         On float data, errors are held relative to the scale at which f32
         rounds the norm expansion, ||x_i||^2 + ||x_j||^2: a squared distance
@@ -509,6 +524,8 @@ def main() -> int:
         d_k, i_k = knn(x, k)
         d_p, i_p = knn_indices_blockwise(x, k)
         torch.cuda.synchronize()
+        if digest:
+            s.log(f"  K2 {label}: (distances, indices) sha256 {_knn_digest(d_k, i_k)}")
         x64 = x.double()
         sq = (x64 * x64).sum(dim=1)
         e_k = _exact_sq_dists(x64, i_k)
@@ -593,12 +610,16 @@ def main() -> int:
         for label, data, k, exact in cases:
             x = torch.as_tensor(data.astype(np.float32), device=dev)
             n = x.shape[0]
-            err, _ = check_k2(label, x, k, exact)
+            err, _ = check_k2(label, x, k, exact, digest=True)
             ms = s.cuda_ms(lambda: knn(x, k), iters=20)
             plain_ms = s.cuda_ms(lambda: knn_indices_blockwise(x, k), iters=20)
+            dot_ms = s.cuda_ms(lambda: torch.matmul(x, x.T), iters=20)
+            two_ms = s.cuda_ms(lambda: _knn_two_calls(torch, x, k), iters=20)
             bound, bound_by = _knn_bound_ms(n, DIM, k)
             s.timed(f"K2 {label} D={DIM}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                    f"bound {bound:.4f} ms ({bound_by}); no single PyTorch call computes it")
+                    f"bound {bound:.4f} ms ({bound_by}); yardsticks: torch.matmul(x, x.T) "
+                    f"(the dot alone) {dot_ms:.4f} ms, two calls (addmm norm expansion, "
+                    f"torch.topk) {two_ms:.4f} ms; no single PyTorch call computes it")
             if not exact:  # the large-node build's call
                 s.kernels["knn"] = {
                     "name": "knn", "route": "cuda",
@@ -608,6 +629,14 @@ def main() -> int:
                     "plain_ms": plain_ms, "bound_ms": bound, "bound_by": bound_by,
                     "library_ms": None,
                 }
+        # the build's node-KNN dispatch (knn_indices_auto) keeps the JAX
+        # package's threshold of 4096 nodes; where would the card put it?
+        for n in (1024, 2048, 4096):
+            x = torch.as_tensor(clustered_slide(rng, n, N_TMA, DIM)[0], device=dev)
+            dense_ms = s.cuda_ms(lambda: knn_indices(x, 6), iters=10)
+            k2_ms = s.cuda_ms(lambda: knn(x, 6), iters=10)
+            s.timed(f"dispatch N={n} D={DIM} k=6: dense knn_indices ([N, N] distances + "
+                    f"stable sort) {dense_ms:.4f} ms, K2 {k2_ms:.4f} ms")
 
     # ---------------------------------------------------------------- 4
     params = dict(num_wsi_super_patches=NUM_SUPER, num_groups=NUM_GROUPS,
@@ -749,9 +778,17 @@ def main() -> int:
         nodes = torch.cat([torch.as_tensor(res["host"]["sp_feats"], device=dev),
                            torch.as_tensor(slide[2], device=dev)])
         _, i_k = check_k2(f"the {n_nodes}-node slide's nodes, k={K + 1}", nodes, K + 1,
-                          exact=False)
+                          exact=False, digest=True)
         s.check(np.array_equal(i_k.cpu().numpy(), res["host"]["knn_idx"]),
                 "K2 relaunched on the build's nodes gives the build's neighbour lists")
+        built = hashlib.sha256(np.ascontiguousarray(res["host"]["knn_idx"], np.int64).tobytes())
+        again = hashlib.sha256(i_k.cpu().numpy().astype(np.int64).tobytes())
+        s.check(built.hexdigest() == again.hexdigest(),
+                f"K2 indices sha256 on the build's nodes {again.hexdigest()[:16]} == the build's "
+                f"knn_idx {built.hexdigest()[:16]}")
+        k2_ms = s.cuda_ms(lambda: knn(nodes, K + 1), iters=20)
+        s.timed(f"K2 alone on the build's {n_nodes} nodes (k={K + 1}): {k2_ms:.4f} ms, "
+                f"{100 * k2_ms / (wall * 1e3):.2f}% of the slide's {wall * 1e3:.1f} ms wall")
 
     # ---------------------------------------------------------------- 7
     def profile_phase():

@@ -14,8 +14,9 @@ from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention, plain_fused_attention_bwd
 from multimodal_fusion_tpu_torch.ops.attention_kernel import ROUTES, _route, attention_bwd, attention_fwd
 from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide
-from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise
-from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
+from multimodal_fusion_tpu_torch.ops import _cuda, knn_kernel
+from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise, knn_merge_partials, knn_partials
+from multimodal_fusion_tpu_torch.ops.knn_kernel import KNN_TILE, knn, knn_launch_rows
 from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
     similarity_rect,
     similarity_rect_plain,
@@ -88,7 +89,16 @@ def test_similarity_kernel_reads_row_slices(cuda, bf16):
 
 
 @pytest.mark.parametrize(
-    "n,k,data", [(33, 1, "integer"), (200, 6, "integer"), (700, 128, "integer"), (1500, 6, "float")]
+    "n,k,data",
+    [
+        (33, 1, "integer"), (200, 6, "integer"), (700, 128, "integer"), (1500, 6, "float"),
+        # one 128-row tile and one row under and over it; k at its ends; on
+        # 132 SMs the last key segment holds 1 key (129 keys: 2 segments of
+        # one 128-key tile; 257: 3, the last with fewer keys than k = 17);
+        # 4097 keys go in 4 segments of 9, 9, 9 and 6 tiles
+        (127, 6, "integer"), (129, 6, "integer"), (4097, 6, "float"), (129, 1, "integer"),
+        (129, 128, "integer"), (257, 17, "integer"), (4097, 6, "integer"),
+    ],
 )
 def test_knn_kernel_matches_plain(cuda, n, k, data):
     rng = np.random.default_rng(n)
@@ -101,13 +111,19 @@ def test_knn_kernel_matches_plain(cuda, n, k, data):
     x = torch.as_tensor(x_np, device=cuda)
     before = knn.launches
     d_k, i_k = knn(x, k)
+    d_again, i_again = knn(x, k)
     d_p, i_p = knn_indices_blockwise(x, k, block=256)
     torch.cuda.synchronize()
-    assert knn.launches == before + 1
+    assert knn.launches == before + 2
+    assert torch.equal(d_k, d_again) and torch.equal(i_k, i_again)  # no atomics on the result
     assert torch.equal(i_k[:, 0], torch.arange(n, device=cuda))
     if data == "integer":
         assert torch.equal(i_k, i_p)
         assert float((d_k - d_p).abs().max()) <= 1e-5
+        s = knn_launch_rows(x, k)[1]
+        # the plain versions of the two launches at the kernel's S
+        d_s, i_s = knn_merge_partials(*knn_partials(x, k, s, unit=KNN_TILE), k)
+        assert torch.equal(i_k, i_s) and torch.equal(d_k, d_s)
         return
     # float data: errors relative to ||x_i||^2 + ||x_j||^2, the scale at
     # which f32 rounds the norm expansion (the distance itself can be far
@@ -123,6 +139,47 @@ def test_knn_kernel_matches_plain(cuda, n, k, data):
     tie_scale = sq[:, None] + torch.maximum(sq[i_k], sq[i_p])
     assert float(((e_k - e_p).abs() / tie_scale).max()) <= 2e-5
     assert float(((d_k.double() ** 2 - e_k).abs() / (sq[:, None] + sq[i_k])).max()) <= 1e-5
+
+
+@pytest.mark.parametrize("view", ["d37", "d37_row_slice", "offset_base", "column_slice"])
+def test_knn_kernel_reads_padded_rows(cuda, view):
+    """Rows K2 cannot read 16 bytes at a time (D 37, ``x[1:]`` at D 37, a
+    base 4 bytes off 16, a column slice) go through a zero-padded copy and
+    give what a contiguous aligned copy gives, bit for bit."""
+    rng = np.random.default_rng(37)
+    flat = torch.as_tensor(rng.standard_normal(1001 * 40 + 1).astype(np.float32), device=cuda)
+    x = {
+        "d37": lambda: flat[:1000 * 37].view(1000, 37),
+        "d37_row_slice": lambda: flat[:1001 * 37].view(1001, 37)[1:],
+        "offset_base": lambda: flat[1:1 + 1000 * 40].view(1000, 40),
+        "column_slice": lambda: flat[:1000 * 40].view(1000, 40)[:, :36],
+    }[view]()
+    assert knn_launch_rows(x, 6)[0].data_ptr() != x.data_ptr()
+    d_k, i_k = knn(x, 6)
+    d_c, i_c = knn(x.clone(memory_format=torch.contiguous_format), 6)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_c) and torch.equal(i_k, i_c)
+    assert torch.equal(i_k[:, 0], torch.arange(1000, device=cuda))
+
+
+def test_knn_c_entry_refuses_what_it_cannot_serve(cuda):
+    """``mmf_knn`` refuses k outside [1, 128], S outside [1, 16], rows it
+    cannot read 16 bytes at a time; the wrapper raises on its error code."""
+    x = torch.zeros((200, 40), device=cuda)
+    out_d = torch.empty((200, 129), device=cuda)
+    out_i = torch.empty((200, 129), dtype=torch.int32, device=cuda)
+    part = torch.empty((17 * 200 * 129,), device=cuda)
+    lib = knn_kernel._lib()
+    for ptr, d, k, s in ((x.data_ptr(), 40, 0, 1), (x.data_ptr(), 40, 129, 1),
+                         (x.data_ptr(), 40, 6, 0), (x.data_ptr(), 40, 6, 17),
+                         (x.data_ptr(), 37, 6, 1), (x.data_ptr() + 4, 36, 6, 1)):
+        err = _cuda.call(x.device, lib.mmf_knn, ptr, out_d.data_ptr(), out_i.data_ptr(),
+                         part.data_ptr(), part.data_ptr(), 200, d, k, s)
+        with pytest.raises(RuntimeError, match="knn kernel"):
+            _cuda.check(err, "knn kernel")
+    for k in (0, 129):
+        with pytest.raises(ValueError):
+            knn(x, k)
 
 
 def test_kernel_wrappers_raise_instead_of_falling_back(cuda):

@@ -23,7 +23,14 @@ from multimodal_fusion_tpu_torch.hypergraph import build as tbuild
 from multimodal_fusion_tpu_torch.ops import kmeans as tkm
 from multimodal_fusion_tpu_torch.ops import knn as tknn
 from multimodal_fusion_tpu_torch.ops import similarity as tsim
-from multimodal_fusion_tpu_torch.ops.knn_kernel import knn, knn_indices_auto
+from multimodal_fusion_tpu_torch.ops.knn_kernel import (
+    KNN_MAX_SEGMENTS,
+    KNN_TILE,
+    knn,
+    knn_indices_auto,
+    knn_launch_rows,
+    knn_segments,
+)
 from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
     combined_similarity_auto,
     padded_rows,
@@ -233,6 +240,104 @@ def test_knn_dispatch_and_edges():
     )
     with pytest.raises(ValueError):
         knn(T(x), 129)
+
+
+def _knn_split(x, k, segments, unit):
+    """K2's two launches in plain PyTorch: segment lists, then the merge."""
+    return tknn.knn_merge_partials(*tknn.knn_partials(x, k, segments, unit), k)
+
+
+# K2's split of the key axis and its merge launch, in plain PyTorch.  The
+# keys go in runs of whole 32-key tiles: 300 keys in 2, 3, 5 segments are
+# 160 + 140, 128 + 128 + 44, 4 x 64 + 44; 200 keys are 128 + 72, 96 + 96 + 8
+# (fewer keys than k = 17 in the last) and 64 + 64 + 64 + 8 with a fifth
+# segment that is empty.
+@pytest.mark.parametrize("segments", [1, 2, 3, 5])
+@pytest.mark.parametrize("k", [1, 17])
+@pytest.mark.parametrize("case", ["float", "ties"])
+def test_knn_split_merge_matches_jax(case, k, segments):
+    x = _knn_cases()[case]
+    d_jax, i_jax = jknn.knn_indices(jnp.asarray(x), k)
+    _, i_pl = pallas_knn(jnp.asarray(x), k, tile_m=128, tile_n=128, interpret=True)
+    d_split, i_split = _knn_split(T(x), k, segments, unit=32)
+    _assert_same_neighbours(i_split.numpy(), _np(i_jax), x, exact=case == "ties")
+    _assert_same_neighbours(i_split.numpy(), _np(i_pl), x, exact=case == "ties")
+    # sqrt of f32 expansion distances: ~1e-6 relative on the squares
+    np.testing.assert_allclose(d_split.numpy(), _np(d_jax), rtol=1e-5, atol=1e-3)
+    if case == "ties":  # exact distances: the split changes nothing, bit for bit
+        d_blk, i_blk = tknn.knn_indices_blockwise(T(x), k)
+        np.testing.assert_array_equal(d_split.numpy(), d_blk.numpy())
+        np.testing.assert_array_equal(i_split.numpy(), i_blk.numpy())
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3, 5])
+def test_knn_split_merge_pins_self_at_large_magnitude(segments):
+    """The split version of test_knn_self_distance_pinned_at_large_magnitude
+    (96 keys in 16-key tiles: at S = 5, three segments of 32 and two empty)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((96, 16)).astype(np.float32) * 300.0
+    d_pl, i_pl = pallas_knn(jnp.asarray(x), 4, tile_m=64, tile_n=64, interpret=True)
+    d, i = _knn_split(T(x), 4, segments, unit=16)
+    np.testing.assert_array_equal(i.numpy()[:, 0], np.arange(96))
+    np.testing.assert_array_equal(d.numpy()[:, 0], 0.0)
+    np.testing.assert_array_equal(i.numpy(), _np(i_pl))
+
+
+@pytest.mark.parametrize("segments", [2, 3, 5])
+def test_knn_merge_partials_takes_segments_in_any_order(segments):
+    """The merge ranks by (value, smallest index), not by where a list sits:
+    the segments' lists in reverse order merge to the same result."""
+    x = T(_knn_cases()["ties"])
+    part_d, part_i = tknn.knn_partials(x, 17, segments, unit=32)
+    d, i = tknn.knn_merge_partials(part_d, part_i, 17)
+    d_rev, i_rev = tknn.knn_merge_partials(part_d.flip(0), part_i.flip(0), 17)
+    assert torch.equal(d, d_rev) and torch.equal(i, i_rev)
+    assert (part_i == x.shape[0]).any() == (segments > 2)  # short or empty segments pad
+
+
+@pytest.mark.parametrize(
+    "n,k,want",
+    [(1, 6, 1), (127, 6, 1), (128, 6, 1), (129, 6, 2), (1024, 6, 8), (2048, 6, 8),
+     (4096, 6, 4), (4097, 6, 4), (5000, 6, 3), (5000, 128, 3), (20000, 6, 5)],
+)
+def test_knn_segment_chooser(n, k, want):
+    """S for N keys on 132 SMs: one full wave of (query tiles x S) blocks
+    where it fits (N 4096: 32 x 4 = 128 blocks), at most one segment per
+    128-key tile and 16 in all, and no empty segment."""
+    s = knn_segments(n, k)
+    tiles = -(-n // KNN_TILE)
+    per = -(-tiles // s)
+    assert s == want
+    assert 1 <= s <= min(tiles, KNN_MAX_SEGMENTS)
+    assert (s - 1) * per < tiles  # the last segment holds keys
+    if tiles <= 132:  # the query tiles fit one wave: so do the blocks
+        assert tiles * s <= 132
+
+
+@pytest.mark.parametrize("case", ["aligned", "d37", "d37_row_slice", "offset_base", "column_slice"])
+def test_knn_launch_rows_pad_what_k2_cannot_read(case):
+    """K2 reads rows 16 bytes at a time: ``knn_launch_rows`` passes rows
+    that allow it as they are and copies others once into zero-padded rows
+    (``padded_rows``), which give the same neighbours bit for bit."""
+    rng = np.random.default_rng(11)
+    flat = T(rng.integers(-2, 3, 301 * 40 + 1).astype(np.float32))
+    base = {
+        "aligned": lambda: flat[:300 * 40].view(300, 40),
+        "d37": lambda: flat[:300 * 37].view(300, 37),
+        "d37_row_slice": lambda: flat[:301 * 37].view(301, 37)[1:],
+        "offset_base": lambda: flat[1:1 + 300 * 40].view(300, 40),  # 4 bytes off 16
+        "column_slice": lambda: flat[:300 * 40].view(300, 40)[:, :36],
+    }[case]()
+    xp, s = knn_launch_rows(base, 6)
+    assert (xp.data_ptr() != base.data_ptr()) == (case != "aligned")
+    assert xp.is_contiguous() and xp.shape[1] % 4 == 0 and xp.data_ptr() % 16 == 0
+    d = base.shape[1]
+    assert torch.equal(xp[:, :d], base) and not xp[:, d:].any()
+    assert s == knn_segments(300, 6)
+    want = _knn_split(base, 6, s, unit=KNN_TILE)
+    got = _knn_split(xp, 6, s, unit=KNN_TILE)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())
 
 
 # ---------------------------------------------------------------------------
