@@ -22,7 +22,17 @@ port's three paths through their entry points:
   tables and with host windows, checked against a CPU run of the port's
   window step; its throughput and a profile of one window.  K4 (the
   attention backward) is held against its plain version at MFMF's three
-  block shapes first.
+  block shapes first;
+- the flagship ``svd_gate_random_clam`` family's serving path, on which no
+  TPU kernel lies: its eval forward at the width of
+  ``combined_svd_gate_random_clam.sh`` on 16 of those cases, checked
+  against a CPU run of the port, bf16 against float32, and the detach
+  variant's ``drop_prob``; inference slides/s at bench.py's cell (8 cases
+  x 4096 WSI x 32 TMA patches x 1024, float32 and bf16) and
+  ``evaluate_fold`` cases/s; the HTTP scoring server (``make_server``) over
+  a results dir of 5 fold checkpoints, checked against ``evaluate_fold``
+  run directly and against a CPU server; a profile of one inference
+  window.
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
@@ -76,6 +86,17 @@ MFMF_DIM, MFMF_HEADS = 128, 8
 MFMF_WSI = (2048, 4096)  # patches per WSI bag: one bucket of 4096
 MFMF_TMA = (9, 16)  # patches per TMA marker: one bucket of 64
 MFMF_TIMED_WINDOWS = 5
+
+# flagship svd_gate_random_clam (experiments/0.clam/svd_gate_random_clam/
+# combined_svd_gate_random_clam.sh): 1024-d inputs, model_size 64*32,
+# output_dim 128, base_weight 0.9, subtyping, inst_number 8, two alignment
+# layers, the SVD, gate and random losses on; wsi, the 8 markers and the 5
+# tabular groups with masks (7 modalities)
+FLAG_DIM, FLAG_WINDOW = 128, 16
+# bench.py's inference cell (bench.py:231-251): windows of 8 cases x 4096
+# WSI x 32 TMA (cd3) patches x 1024 and clinical values, held on the card
+INF_BATCH, INF_WSI, INF_TMA, INF_BATCHES, INF_WINDOWS = 8, 4096, 32, 32, 5
+SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64, 160)
 
 
 def _card_line() -> str:
@@ -273,6 +294,37 @@ def _device_gaps(trace_path):
     return span, busy, sorted(gaps, key=lambda g: g[0], reverse=True)
 
 
+class _CsvCases:
+    """The dataset interface the serving path reads (``case_ids``,
+    ``case_to_patient``, ``labels``, ``get_case``) over a request's CSV,
+    whose rows' ``h5_file_path`` name cases held in host memory: it stands
+    in for ``utils.results_io.build_dataset``'s HDF5 reader, since the
+    card's machine has no h5py.  Labels map as the HDF5 dataset maps them
+    (sorted unique labels)."""
+
+    has_survival_time = False
+
+    def __init__(self, csv_path, by_path):
+        import csv
+
+        with open(csv_path, newline="") as f:
+            rows = list(csv.DictReader(f))
+        self._rows = {r["case_id"]: r for r in rows if r["h5_file_path"] in by_path}
+        self._by_path = by_path
+        self.case_ids = sorted(self._rows)
+        self.case_to_patient = {c: r["patient_id"] for c, r in self._rows.items()}
+        uniq = sorted({r["label"] for r in self._rows.values()})
+        self.label_to_int = {label: i for i, label in enumerate(uniq)}
+        self.labels = np.asarray([self.label_to_int[self._rows[c]["label"]] for c in self.case_ids])
+
+    def __len__(self):
+        return len(self.case_ids)
+
+    def get_case(self, case_id):
+        r = self._rows[case_id]
+        return self._by_path[r["h5_file_path"]], self.label_to_int[r["label"]]
+
+
 class _CaseTable:
     """The dataset interface ``SurvivalTrainer.train_fold`` reads
     (``case_ids``, ``labels``, ``get_case``) over cases held in host
@@ -436,8 +488,14 @@ def main() -> int:
         similarity_rect,
         similarity_rect_plain,
     )
+    from multimodal_fusion_tpu_torch.data.batching import make_window
+    from multimodal_fusion_tpu_torch.data.splits import FoldSplit
+    from multimodal_fusion_tpu_torch.train.checkpoint import save_model
     from multimodal_fusion_tpu_torch.train.optim import make_optimizer
     from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
+    from multimodal_fusion_tpu_torch.utils import results_io
+    from multimodal_fusion_tpu_torch.utils.predict import ensemble_rows, write_csv
+    from multimodal_fusion_tpu_torch.utils.serve import make_server
 
     dev = resolve_device("cuda")
     s = Smoke(torch)
@@ -1324,16 +1382,22 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 12
     mfmf = {}  # trainer, model, tables and timing window, read by phase 13
+    drawn = {}  # phase 12's in-memory cases, read by phases 14-16
+
+    def mfmf_raw_cases():
+        if not drawn:
+            t0 = time.perf_counter()
+            drawn["cases"] = _mfmf_cases(np.random.default_rng(12), TMA_MARKERS, TABULAR_DIMS)
+            s.log(f"  {MFMF_CASES} in-memory cases drawn in {time.perf_counter() - t0:.1f} s (host)")
+        return drawn["cases"]
 
     def mfmf_phase():
         """The slice's main path: MFMF survival training at mfmf_config0
         width through ``SurvivalTrainer.train_fold``."""
         chans = parse_channels(["wsi", "tma"] + [f"{g}_mask" for g in TABULAR_DIMS])
-        t0 = time.perf_counter()
-        raws, labels = _mfmf_cases(np.random.default_rng(12), TMA_MARKERS, TABULAR_DIMS)
+        raws, labels = mfmf_raw_cases()
         ds = _CaseTable(raws, labels)
-        s.log(f"  {MFMF_CASES} in-memory cases ({len(chans)} channels) drawn in "
-              f"{time.perf_counter() - t0:.1f} s (host)")
+        s.log(f"  {MFMF_CASES} in-memory cases, {len(chans)} channels")
         mc = ModelConfig(model_type="mfmf", n_classes=2, input_dim=DIM, model_size="64*32",
                          dropout=0.25, inst_number=8, base_weight=0.9, subtyping=True,
                          output_dim=MFMF_DIM, channels_used_in_model=chans,
@@ -1526,6 +1590,311 @@ def main() -> int:
             for us, before, after in gaps[:5]:
                 s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
 
+    # ---------------------------------------------------------------- 14
+    flag = {}  # directory, configs, trainers, models and windows, read by phases 15-17
+    empty_idx = np.array([], np.int64)
+
+    def flag_config(model_type="svd_gate_random_clam"):
+        """combined_svd_gate_random_clam.sh's model config."""
+        return ModelConfig(
+            model_type=model_type, n_classes=2, input_dim=DIM, model_size="64*32", dropout=0.25,
+            output_dim=FLAG_DIM, base_weight=0.9, subtyping=True, inst_number=8,
+            alignment_layer_num=2, lambda1=0.1, lambda2=0.1, tau1=1.0, tau2=1.0,
+            weight_random_loss=0.1, enable_svd=True, enable_dynamic_gate=True,
+            enable_random_loss=True,
+            channels_used_in_model=parse_channels(["wsi", "tma"] + [f"{g}_mask" for g in TABULAR_DIMS]),
+            channel_input_dims={f"{g}=val": d for g, d in TABULAR_DIMS.items()})
+
+    def bf16_config(mc):
+        mc16 = ModelConfig.from_dict(mc.to_dict())
+        mc16.extra["compute_dtype"] = "bfloat16"
+        return mc16
+
+    def no_kernel_launches(what):
+        torch.cuda.synchronize()
+        counts = {name: fn.launches for name, fn in counters.items()}
+        s.check(not any(counts.values()), f"{what}: K1-K4 launched 0 times ({counts})")
+
+    def flagship_phase():
+        """The flagship eval forward on the card against a CPU run of the
+        port from the same weights and window; bf16 against float32; the
+        detach variant's drop_prob."""
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        mc = flag_config()
+        td = Path(tempfile.mkdtemp(prefix="flagship_"))
+        ec = ExperimentConfig(exp_name="combined_svd_gate_random_clam", seed=5678,
+                              k_folds=SERVE_FOLDS, batch_size=64,
+                              target_channels=list(mc.channels_used_in_model))
+        flag.update(dir=td, ec=ec)
+        tr = SurvivalTrainer(Configs(ec, mc), td / "f32", device=dev)
+        window = tr._to_device(make_window(raws[:FLAG_WINDOW], labels[:FLAG_WINDOW]))
+        case, label = {"channels": window["channels"], "masks": window["masks"]}, window["label"]
+        n_wsi = window["masks"]["wsi=features"].sum(1)
+        s.log(f"  window: {FLAG_WINDOW} cases, WSI bags of {int(n_wsi.min())}-{int(n_wsi.max())} "
+              f"patches in a bucket of {window['channels']['wsi=features'].shape[1]}, "
+              f"{len(window['channels'])} channels")
+        card = ModelFactory.create_model(mc, seed=0, device=dev)
+        host = ModelFactory.create_model(mc, device="cpu")
+        host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+        s.check(len(card.used_modality) == 7, f"{len(card.used_modality)} modalities: {card.used_modality}")
+        with torch.no_grad():
+            got = card(case, label)
+            got_loss = card.loss_fn(got["logits"], label, got)
+            t0 = time.perf_counter()
+            want = host({k: {c: t.cpu() for c, t in case[k].items()} for k in case}, label.cpu())
+            want_loss = host.loss_fn(want["logits"], label.cpu(), want)
+        s.log(f"  CPU forward of the window: {time.perf_counter() - t0:.1f} s (host)")
+        l_err = float((got["logits"].cpu() - want["logits"]).abs().max())
+        p_err = float((got["probabilities"].cpu() - want["probabilities"]).abs().max())
+        loss_err = float(((got_loss.cpu() - want_loss).abs() / want_loss.abs()).max())
+        a_err = _rel_l2_all(got["aligned_features_stack"].cpu(), want["aligned_features_stack"])
+        # true float32 on both sides, summed in other orders over 1024-d rows
+        s.check(l_err <= 1e-4 and p_err <= 1e-5,
+                f"flagship forward, card vs CPU (float32, TF32 off): logits max abs err "
+                f"{l_err:.2e} <= 1e-4, probabilities {p_err:.2e} <= 1e-5")
+        s.check(loss_err <= 1e-4 and a_err <= 1e-5,
+                f"per-case eval losses within {loss_err:.2e} <= 1e-4 relative, "
+                f"aligned_features_stack {tuple(got['aligned_features_stack'].shape)} within "
+                f"{a_err:.2e} <= 1e-5 relative L2")
+
+        tr16 = SurvivalTrainer(Configs(ec, bf16_config(mc)), td / "bf16", device=dev)
+        p16 = tr16._eval_window(tr16._compute_model(card), window)[1]
+        d16 = float((p16 - got["probabilities"]).abs().max())
+        s.check(p16.dtype == torch.float32 and d16 <= 4e-2,
+                f"compute_dtype bfloat16 vs float32: probabilities within {d16:.2e} <= 4e-2 "
+                "(the JAX package's bar, tests/test_trainers.py:test_bf16_eval_matches_f32)")
+
+        det = ModelFactory.create_model(flag_config("svd_gate_random_clam_detach"), seed=0, device=dev)
+        gen = torch.Generator(device=dev)
+        with torch.no_grad():
+            plain = det(case, label)["logits"]
+            zero = det(case, label, generator=gen.manual_seed(0), drop_prob=0.0)["logits"]
+            ones = det(case, label, generator=gen.manual_seed(0), drop_prob=1.0)["logits"]
+            head = det.fusion_prediction(
+                torch.zeros(FLAG_WINDOW, det.fusion_prediction[0].in_features, device=dev))
+        s.check(torch.equal(plain, zero), "svd_gate_random_clam_detach at drop_prob 0.0 equals "
+                                          "its forward without drop_prob")
+        s.check(torch.equal(ones, head), "svd_gate_random_clam_detach at drop_prob 1.0: the logits "
+                                         "are the fusion head's on an all-zero input")
+        no_kernel_launches("phase 14")
+
+    # ---------------------------------------------------------------- 15
+    def flagship_inference_phase():
+        """Main path: flagship inference slides/s at bench.py's cell, and
+        evaluate_fold cases/s over phase 12's cases on host windows."""
+        reset_counts()
+        chans = ["wsi=features", "tma=cd3=features", "clinical=val", "clinical=mask"]
+        mc = ModelConfig(model_type="svd_gate_random_clam", n_classes=2, input_dim=DIM,
+                         model_size="64*32", dropout=0.25, output_dim=128,
+                         channels_used_in_model=chans, channel_input_dims={"clinical=val": 16})
+        rng = np.random.default_rng(0)
+        shapes = {"wsi=features": (INF_BATCH, INF_WSI, DIM), "tma=cd3=features": (INF_BATCH, INF_TMA, DIM),
+                  "clinical=val": (INF_BATCH, 1, 16)}
+        channels = {k: torch.as_tensor(rng.standard_normal(v, dtype=np.float32), device=dev)
+                    for k, v in shapes.items()}
+        channels["clinical=mask"] = torch.ones((INF_BATCH, 1, 16), device=dev)
+        masks = {"wsi=features": torch.ones((INF_BATCH, INF_WSI), dtype=torch.bool, device=dev),
+                 "tma=cd3=features": torch.ones((INF_BATCH, INF_TMA), dtype=torch.bool, device=dev)}
+        label = torch.zeros(INF_BATCH, dtype=torch.int64, device=dev)
+        model = ModelFactory.create_model(mc, seed=0, device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        for name, cfg in (("float32", mc), ("bf16", bf16_config(mc))):
+            tr = SurvivalTrainer(Configs(flag["ec"], cfg), flag["dir"] / f"inference_{name}", device=dev)
+            m = tr._compute_model(model)
+            dtype = tr.compute_dtype or torch.float32
+            # the window is held in the compute dtype, as bench.py holds it
+            win = {"channels": {k: v.to(dtype) for k, v in channels.items()}, "masks": masks,
+                   "label": label}
+
+            def window_run(tr=tr, m=m, win=win):
+                for _ in range(INF_BATCHES):
+                    out = tr._eval_window(m, win)
+                torch.cuda.synchronize()
+                return out
+
+            window_run()
+            walls = []
+            for _ in range(INF_WINDOWS):
+                t0 = time.perf_counter()
+                out = window_run()
+                walls.append(time.perf_counter() - t0)
+            rates = sorted(INF_BATCH * INF_BATCHES / w for w in walls)
+            median = float(np.median(walls))
+            flag[f"inference_{name}"] = (window_run, median * 1e3)
+            s.check(out[1].shape == (INF_BATCH, 2) and bool(torch.isfinite(out[1]).all())
+                    and bool(torch.isfinite(out[3]).all()),
+                    f"{name}: probabilities [{INF_BATCH}, 2] and losses finite")
+            s.log(f"  {name} window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+            s.timed(f"flagship inference, {name}: median {INF_BATCH * INF_BATCHES / median:.1f} "
+                    f"slides/s over {INF_WINDOWS} windows of {INF_BATCHES} batches of {INF_BATCH} "
+                    f"(min {rates[0]:.1f}, max {rates[-1]:.1f}); {1e3 * median / INF_BATCHES:.3f} ms "
+                    "per batch (the trainer's eval step: forward, loss, risk)")
+        s.timed(f"peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+
+        raws, labels = mfmf_raw_cases()
+        mcf = flag_config()
+        tr = SurvivalTrainer(Configs(flag["ec"], mcf), flag["dir"] / "evaluate", device=dev)
+        save_model(tr.log_dir / "s_0_checkpoint.npz", ModelFactory.create_model(mcf, seed=1, device=dev))
+        ds = _CaseTable(raws, labels)
+        split = FoldSplit(empty_idx, empty_idx, np.arange(MFMF_CASES))
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            res = tr.evaluate_fold(ds, split, 0)
+            walls.append(time.perf_counter() - t0)
+        s.check(np.asarray(res["probs"]).shape == (MFMF_CASES, 2) and np.isfinite(res["probs"]).all(),
+                f"evaluate_fold: {MFMF_CASES} finite probabilities")
+        s.timed(f"evaluate_fold over {MFMF_CASES} cases in host windows of 16 (read, padded, "
+                f"uploaded): {MFMF_CASES / float(np.median(walls[1:])):.1f} cases/s (median of 2 "
+                "runs after a warm-up)")
+        no_kernel_launches("phase 15")
+
+    # ---------------------------------------------------------------- 16
+    def serving_phase():
+        """Main path: the HTTP scoring server over a results dir of 5 fold
+        checkpoints, against evaluate_fold run directly and a CPU server."""
+        import http.client
+        import threading
+
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        mc, ec = flag_config(), flag["ec"]
+        rd = flag["dir"] / "serve"
+        rd.mkdir()
+        Configs(ec, mc).save(rd / f"configs_{ec.exp_name}.json")
+        for fold in range(SERVE_FOLDS):
+            save_model(rd / f"s_{fold}_checkpoint.npz",
+                       ModelFactory.create_model(mc, seed=100 + fold, device=dev))
+        folds = list(range(SERVE_FOLDS))
+        by_path = {f"h5/case_{i:03d}.h5": raw for i, raw in enumerate(raws)}
+        names = ("deceased", "living")
+        rows = [{"patient_id": str(1000 + i), "case_id": f"case_{i:03d}", "label": names[int(lab)],
+                 "h5_file_path": f"h5/case_{i:03d}.h5"} for i, lab in enumerate(labels)]
+        float_cols = ["risk", "prob_0", "prob_1"] + [f"fold_{f}_prob_1" for f in folds]
+
+        def max_diff(got, want):
+            same = ([r["case_id"] for r in got] == [r["case_id"] for r in want]
+                    and [r["prediction"] for r in got] == [r["prediction"] for r in want])
+            err = max(abs(float(g[c]) - float(w[c])) for g, w in zip(got, want) for c in float_cols)
+            return same, err
+
+        original = results_io.build_dataset
+        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None: _CsvCases(
+            csv_path, by_path)
+        s.log("  utils.results_io.build_dataset is replaced by an in-memory reader keyed by "
+              "h5_file_path (this machine has no h5py); everything downstream is the port's own")
+        httpd = thread = None
+        try:
+            t0 = time.perf_counter()
+            httpd = make_server(rd, rd, port=0, device=dev)
+            s.timed(f"make_server: {SERVE_FOLDS} fold models built and loaded in "
+                    f"{time.perf_counter() - t0:.2f} s")
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+
+            def request(method, path, body=None):
+                conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=600)
+                try:
+                    conn.request(method, path, body=body)
+                    resp = conn.getresponse()
+                    return resp.status, json.loads(resp.read() or b"{}")
+                finally:
+                    conn.close()
+
+            status, health = request("GET", "/health")
+            s.check(status == 200 and health.get("folds") == folds,
+                    f"GET /health: {status}, folds {health.get('folds')}")
+            responses = {}
+            for n in SERVE_REQUESTS:
+                t0 = time.perf_counter()
+                status, res = request("POST", "/predict", json.dumps({"cases": rows[:n]}))
+                wall = time.perf_counter() - t0
+                s.check(status == 200 and res.get("n_cases_scored") == n,
+                        f"POST /predict of {n} cases: {status}, {res.get('n_cases_scored')} scored")
+                s.timed(f"POST /predict, {n} cases x {SERVE_FOLDS} folds: {wall:.3f} s, "
+                        f"{n / wall:.1f} cases/s")
+                responses[n] = res["cases"]
+            tr = SurvivalTrainer(Configs(ec, mc), rd, device=dev)
+            for n, got in responses.items():
+                csv_path = flag["dir"] / f"request_{n}.csv"
+                write_csv(csv_path, rows[:n])
+                ds = results_io.build_dataset(tr.configs, csv_path, rd)
+                split = FoldSplit(empty_idx, empty_idx, np.arange(len(ds)))
+                per_fold = {f: tr.evaluate_fold(ds, split, f) for f in folds}
+                same, err = max_diff(got, ensemble_rows(per_fold, folds, ds.case_to_patient))
+                s.check(same and err <= 1e-6, f"{n}-case response vs the ensemble of evaluate_fold "
+                                              f"run directly on the card: max abs diff {err:.2e} <= 1e-6")
+            status, err = request("POST", "/predict", b"{not json")
+            s.check(status == 400 and "error" in err, f"malformed body: {status}")
+            status, health = request("GET", "/health")
+            s.check(status == 200 and health.get("requests") == len(SERVE_REQUESTS),
+                    f"server up after the 400: {status}, {health.get('requests')} requests scored")
+            cpu = make_server(rd, rd, port=0, device="cpu")
+            try:
+                for n in SERVE_REQUESTS[:2]:
+                    t0 = time.perf_counter()
+                    got = cpu.scorer.score_rows(rows[:n])["cases"]
+                    s.log(f"  CPU ScoringServer, {n} cases: {time.perf_counter() - t0:.1f} s (host)")
+                    same, err = max_diff(got, responses[n])
+                    s.check(same and err <= 1e-4, f"{n} cases, CPU ScoringServer vs the card's "
+                                                  f"responses: max abs diff {err:.2e} <= 1e-4 "
+                                                  "(phase 14's logit bound; risk is a logit)")
+            finally:
+                cpu.server_close()
+        finally:
+            results_io.build_dataset = original
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+            if thread is not None:
+                thread.join(timeout=60)
+        no_kernel_launches("phase 16")
+
+    # ---------------------------------------------------------------- 17
+    def flagship_profile_phase():
+        """One phase-15 window in float32 and in bf16 under the profiler:
+        device busy share, device ops, the longest device ops, the longest
+        host ops (self time) and the longest idle gaps."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        reset_counts()
+        for name in ("float32", "bf16"):
+            window_run, median_ms = flag[f"inference_{name}"]
+            window_run()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                window_run()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = _device_events(prof)
+            if not events:
+                s.log(f"  {name}: profiler saw no device time: device busy share not measured")
+                continue
+            busy_ms = sum(us for _, us in events) / 1e3
+            n_ops = sum(e.count for e, _ in events)
+            s.timed(f"one {name} inference window ({INF_BATCHES} batches of {INF_BATCH}) under "
+                    f"torch.profiler: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+                    f"({100 * busy_ms / wall_ms:.1f}% of the profiled wall), {n_ops} device ops "
+                    f"({n_ops / INF_BATCHES:.0f} per batch)")
+            s.timed(f"estimate: profiled device time over phase 15's median {median_ms:.2f} ms per "
+                    f"window = {100 * busy_ms / median_ms:.1f}% device busy (two runs)")
+            for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
+                s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+            host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+            for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
+                s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
+            trace = flag["dir"] / f"inference_trace_{name}.json"
+            prof.export_chrome_trace(str(trace))
+            span, busy, gaps = _device_gaps(trace)
+            if span > 0:
+                s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the "
+                        f"last, busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it "
+                        f"in {sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
+                for us, before, after in gaps[:3]:
+                    s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+        no_kernel_launches("phase 17")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -1539,8 +1908,13 @@ def main() -> int:
     s.phase("11. K4 attention backward kernel vs plain", attention_bwd_phase)
     s.phase("12. main path: MFMF survival training", mfmf_phase)
     s.phase("13. where one MFMF training window's time goes", mfmf_profile_phase)
-    if "dir" in mfmf:
-        shutil.rmtree(mfmf["dir"], ignore_errors=True)
+    s.phase("14. flagship svd_gate_random_clam forward, card vs CPU", flagship_phase)
+    s.phase("15. main path: flagship inference throughput", flagship_inference_phase)
+    s.phase("16. main path: serving", serving_phase)
+    s.phase("17. where one flagship inference window's time goes", flagship_profile_phase)
+    for d in (mfmf, flag):
+        if "dir" in d:
+            shutil.rmtree(d["dir"], ignore_errors=True)
 
     for name, launches in main_path_launches.items():
         if name in s.kernels:

@@ -9,9 +9,12 @@ axis written out:
 value and mask channels are [G, 1, D_c].  ``case['masks']``: dict
 bag-channel -> bool [G, N_pad] validity masks.
 
-A model's ``forward(case, *, generator=None, train=False)`` returns the
-result dict with at least ``logits`` [G, C], ``probabilities`` [G, C] and
-``predictions`` [G]; ``loss_fn(logits, labels, result)`` returns the
+A model's ``forward(case, label=None, *, generator=None, train=False)``
+takes the window's labels [G] (the CLAM family's branch and gate losses
+read them; MFMF ignores them) and returns the result dict with at least
+``logits`` [G, C], ``probabilities`` [G, C] and ``predictions`` [G]; an
+entry that is [1, ...] per case in the JAX package is [G, ...] here (a
+scalar loss is [G]).  ``loss_fn(logits, labels, result)`` returns the
 per-case losses [G] (each the JAX model's loss of that case alone).
 """
 

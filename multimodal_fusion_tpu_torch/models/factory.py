@@ -1,9 +1,9 @@
 """Model factory (counterpart of ``multimodal_fusion_tpu.models.factory``).
 
-The registry carries the JAX package's keys.  ``mfmf`` is ported; every
-other key raises ``NotImplementedError`` naming the ROADMAP item that
-ports it (Queue 1 item 9: the flagship trunk and its family; item 12: the
-rest of the zoo).
+The registry carries the JAX package's keys.  ``mfmf``, MIL, CLAM, the
+ClamMLP trunk and the flagship svd_gate family are ported; every other key
+raises ``NotImplementedError`` naming ROADMAP Queue 1 item 12 (the rest
+of the zoo), which ports it.
 """
 
 from __future__ import annotations
@@ -13,15 +13,32 @@ from typing import Dict, Optional, Type, Union
 import torch
 
 from multimodal_fusion_tpu_torch.config import ModelConfig
+from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.models.base import BaseModel
+from multimodal_fusion_tpu_torch.models.clam import CLAM, MILFC
+from multimodal_fusion_tpu_torch.models.clam_mlp import ClamMLP, ClamMLPDetach
 from multimodal_fusion_tpu_torch.models.mfmf import MFMF
-
-_ITEM_9 = (
-    "mil", "clam", "clam_mlp", "clam_mlp_detach",
-    "svd_gate_random_clam", "svd_gate_random_clam_detach",
-    "clip_gate_random_clam", "clip_gate_random_clam_detach",
-    "deep_supervise_svd_gate_random", "deep_supervise_svd_gate_random_detach",
+from multimodal_fusion_tpu_torch.models.svd_gate import (
+    ClipGateRandomClam,
+    ClipGateRandomClamDetach,
+    DeepSuperviseSVDGateRandomClam,
+    DeepSuperviseSVDGateRandomClamDetach,
+    SVDGateRandomClam,
+    SVDGateRandomClamDetach,
 )
+
+_ITEM_9 = {
+    "mil": MILFC,
+    "clam": CLAM,
+    "clam_mlp": ClamMLP,
+    "clam_mlp_detach": ClamMLPDetach,
+    "svd_gate_random_clam": SVDGateRandomClam,
+    "svd_gate_random_clam_detach": SVDGateRandomClamDetach,
+    "clip_gate_random_clam": ClipGateRandomClam,
+    "clip_gate_random_clam_detach": ClipGateRandomClamDetach,
+    "deep_supervise_svd_gate_random": DeepSuperviseSVDGateRandomClam,
+    "deep_supervise_svd_gate_random_detach": DeepSuperviseSVDGateRandomClamDetach,
+}
 _ITEM_12 = (
     "auc_clam", "gate_shared_mil", "gate_mil", "gate_auc_mil", "gate_mil_detach",
     "svd_pool", "mdlm", "ps3", "fbp", "cust_omics", "svd_clam", "auto_connections",
@@ -30,7 +47,7 @@ _ITEM_12 = (
 
 # key -> model class, or the ROADMAP item that ports it
 MODEL_REGISTRY: Dict[str, Union[Type[BaseModel], str]] = {
-    **{k: "ROADMAP Queue 1 item 9" for k in _ITEM_9},
+    **_ITEM_9,
     **{k: "ROADMAP Queue 1 item 12" for k in _ITEM_12},
     "mfmf": MFMF,
 }
@@ -42,7 +59,7 @@ class ModelFactory:
                      ) -> BaseModel:
         """Build a model from a ModelConfig (or raw dict) with weights drawn
         from a ``torch.Generator`` seeded with ``seed`` on ``device``
-        (default: the CUDA card)."""
+        (default: the CUDA card, through ``device.resolve_device``)."""
         if isinstance(config, dict):
             config = ModelConfig.from_dict(config)
         model_type = config.model_type
@@ -53,8 +70,7 @@ class ModelFactory:
         cls = MODEL_REGISTRY[model_type]
         if isinstance(cls, str):
             raise NotImplementedError(f"model {model_type!r} is not ported yet ({cls})")
-        dev = torch.device("cuda" if device is None else device)
-        return cls(config, torch.Generator(device=dev).manual_seed(seed))
+        return cls(config, torch.Generator(device=resolve_device(device)).manual_seed(seed))
 
     @staticmethod
     def available_models():

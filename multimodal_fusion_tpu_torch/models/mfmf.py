@@ -169,8 +169,8 @@ class MFMF(BaseModel):
             modality_mask["other"] = None
         return modality, modality_mask
 
-    def forward(self, case: Case, *, generator: Optional[torch.Generator] = None,
-                train: bool = False) -> Result:
+    def forward(self, case: Case, label: Optional[torch.Tensor] = None, *,
+                generator: Optional[torch.Generator] = None, train: bool = False) -> Result:
         modality, modality_mask = self._collect_modalities(case)
         result_mask = None
         for blk in self.fusion_blocks_sequence:

@@ -11,7 +11,7 @@ windows have the same shapes as the JAX package's.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -36,6 +36,32 @@ def masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 0) -> 
     if x.dim() > mask.dim():
         w = w.unsqueeze(-1)
     return (x * w).sum(dim=dim) / w.sum(dim=dim).clamp_min(1.0)
+
+
+def masked_max(x: torch.Tensor, mask: Optional[torch.Tensor], dim: int = 0) -> torch.Tensor:
+    """Max over ``dim`` with invalid entries replaced by ``NEG_INF``."""
+    if mask is None:
+        return x.amax(dim=dim)
+    w = mask.unsqueeze(-1) if x.dim() > mask.dim() else mask
+    return torch.where(w, x, NEG_INF).amax(dim=dim)
+
+
+def masked_topk(scores: torch.Tensor, k: int, mask: Optional[torch.Tensor] = None,
+                largest: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the top ``k`` over the last dim, masked entries
+    counted as ``NEG_INF`` (``largest=False``: the bottom k, by negation).
+
+    Equal values come out lower index first, as ``jax.lax.top_k`` orders
+    them (``torch.topk`` promises no order): a stable descending sort.
+    With fewer than ``k`` valid entries the trailing slots point at masked
+    entries, so callers weight slots by a validity count (the reference's
+    ``k = min(inst_number, N)``, clam_mlp.py:193-197)."""
+    s = scores if largest else -scores
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
+    vals, idx = torch.sort(s, dim=-1, descending=True, stable=True)
+    vals, idx = vals[..., :k], idx[..., :k]
+    return (vals if largest else -vals), idx
 
 
 def pad_to(x: torch.Tensor, n: int, dim: int = 0, value: float = 0.0) -> torch.Tensor:

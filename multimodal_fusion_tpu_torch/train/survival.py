@@ -24,8 +24,12 @@ Execution options (``ExperimentConfig``):
 - ``scan_windows``: accepted; the windows run one after another (the JAX
   package fuses W of them into one dispatch with numerics equal to
   sequential steps).
-- ``mesh_shape``, ``remat`` and ``compute_dtype="bfloat16"`` are not ported
-  yet and raise ``NotImplementedError`` naming their ROADMAP items.
+- ``compute_dtype="bfloat16"`` (model config) evaluates in bfloat16, as
+  the JAX package's ``_make_eval_step`` does: a bfloat16 copy of the
+  parameters and of the window's floating inputs, outputs cast back to
+  float32 for the metrics.  Training stays float32.
+- ``mesh_shape`` and ``remat`` are not ported yet and raise
+  ``NotImplementedError`` naming their ROADMAP items.
 
 Dropout draws from a ``torch.Generator`` on the run's device seeded like
 the JAX trainer's key (``seed * 1000 + fold``); the draws differ from
@@ -36,6 +40,7 @@ numpy in both.
 
 from __future__ import annotations
 
+import copy
 import json
 import time
 from pathlib import Path
@@ -124,9 +129,9 @@ class SurvivalTrainer:
                                       "ROADMAP Queue 1 item 16")
         if self.exp.get("remat", False):
             raise NotImplementedError("remat is not ported yet: ROADMAP Queue 1 item 11")
-        if configs.model_config.get("compute_dtype", "float32") == "bfloat16":
-            raise NotImplementedError('compute_dtype="bfloat16" inference is not ported yet: '
-                                      "ROADMAP Queue 1 item 10")
+        # evaluation dtype (None: the parameters' float32)
+        self.compute_dtype = (torch.bfloat16 if configs.model_config.get("compute_dtype", "float32")
+                              == "bfloat16" else None)
 
     # ------------------------------------------------------------------
     # model, windows, tables
@@ -272,7 +277,7 @@ class SurvivalTrainer:
         tensor left on the device)."""
         labels = window["label"]
         case = {"channels": window["channels"], "masks": window["masks"]}
-        res = model(case, generator=generator, train=True)
+        res = model(case, labels, generator=generator, train=True)
         losses = model.loss_fn(res["logits"], labels, res)
         total = losses.sum() / labels.shape[0]
         optimizer.zero_grad(set_to_none=True)
@@ -280,27 +285,48 @@ class SurvivalTrainer:
         optimizer.step()
         return losses.detach().mean()
 
-    @staticmethod
+    def _compute_model(self, model):
+        """``model`` itself, or under ``compute_dtype="bfloat16"`` a bfloat16
+        copy of it (a model already in bfloat16 is returned as it is)."""
+        if self.compute_dtype is None or next(model.parameters()).dtype == self.compute_dtype:
+            return model
+        return copy.deepcopy(model).to(self.compute_dtype)
+
     @torch.no_grad()
-    def _eval_window(model, window):
+    def _eval_window(self, model, window, generator=None, drop_prob=None):
         """(logits, probabilities, predictions, per-case losses, risk) of one
-        window, left on the device."""
-        case = {"channels": window["channels"], "masks": window["masks"]}
-        res = model(case, train=False)
+        window, float32, left on the device.  ``model`` is in the compute
+        dtype (``_compute_model``); the window's floating inputs are cast to
+        it.  ``drop_prob`` reaches the forward only when given (the detach
+        models' inference-time modality dropout, drawn from ``generator``)."""
+        channels = window["channels"]
+        if self.compute_dtype is not None:
+            channels = {k: v.to(self.compute_dtype) if v.is_floating_point() else v
+                        for k, v in channels.items()}
+        case = {"channels": channels, "masks": window["masks"]}
+        kw = {} if drop_prob is None else {"generator": generator, "drop_prob": drop_prob}
+        res = model(case, window["label"], train=False, **kw)
         losses = model.loss_fn(res["logits"], window["label"], res)
         # log-risk for the C-index: the Cox head's output when present, the
         # positive-class logit otherwise
         risk = res["risk"] if "risk" in res else res["logits"][:, 1:2]
-        return res["logits"], res["probabilities"], res["predictions"], losses, risk
+        out = (res["logits"], res["probabilities"], res["predictions"], losses, risk)
+        return tuple(t.float() if t.is_floating_point() else t for t in out)
 
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
 
-    def _evaluate(self, dataset, indices, model, tables=None, row_of=None) -> Dict[str, Any]:
+    def _evaluate(self, dataset, indices, model, tables=None, row_of=None,
+                  drop_prob: Optional[float] = None, seed: int = 0) -> Dict[str, Any]:
         """Evaluate the cases at ``indices`` in windows of min(batch_size,
-        16); results stay on the device until one host sync at the end."""
+        16); results stay on the device until one host sync at the end.
+        ``drop_prob`` draws from a generator on the run's device seeded with
+        ``seed``."""
         G = min(self.exp.batch_size, 16)
+        model = self._compute_model(model)
+        generator = (None if drop_prob is None
+                     else torch.Generator(device=self.device).manual_seed(seed))
         outs = []
         if tables is not None:
             rows = torch.as_tensor([row_of[int(i)] for i in indices], dtype=torch.int64)
@@ -308,13 +334,14 @@ class SurvivalTrainer:
             labels = [np.asarray(dataset.labels)[np.asarray(indices, int)]]
             for s in range(0, len(rows), G):
                 idx = rows[s : s + G].to(self.device)
-                outs.append(self._eval_window(model, self._gather_window(tables, idx)))
+                outs.append(self._eval_window(model, self._gather_window(tables, idx), generator,
+                                              drop_prob))
         else:
             patient_ids, labels = [], []
             for chunk, window in self._windows(dataset, indices, G):
                 labels.append(np.asarray(window["label"]))
                 patient_ids.extend(chunk)
-                outs.append(self._eval_window(model, self._to_device(window)))
+                outs.append(self._eval_window(model, self._to_device(window), generator, drop_prob))
         return self._eval_summary(dataset, outs, labels, patient_ids)
 
     def _eval_summary(self, dataset, outs, all_labels, patient_ids) -> Dict[str, Any]:
@@ -469,14 +496,16 @@ class SurvivalTrainer:
     ) -> Dict[str, Any]:
         """Eval-only path: load a fold checkpoint and evaluate the test split
         (reference trainer.py:1044-1169).  ``drop_prob`` (inference-time
-        modality dropout) raises for models that do not implement it, as in
-        the JAX trainer; no ported model does."""
+        modality dropout, each case zeroing each modality with that
+        probability, drawn from a generator seeded with ``seed``) runs on
+        the models that implement it, the ``*_detach`` svd_gate family, and
+        raises for the others, as in the JAX trainer."""
         model = self._build_model(fold_idx)
         if drop_prob is not None and not getattr(model, "supports_drop_prob", False):
             raise ValueError(f"{type(model).__name__} does not support inference-time modality "
                              "dropout (drop_prob); use a *_detach variant")
         load_model(Path(checkpoint_path or self.log_dir / f"s_{fold_idx}_checkpoint.npz"), model)
-        res = self._evaluate(dataset, split.test_idx, model)
+        res = self._evaluate(dataset, split.test_idx, model, drop_prob=drop_prob, seed=seed)
         return {k: res[k] for k in ("auc", "acc", "loss", "patient_ids")} | {
             "probs": res["probs"].tolist(),
             "labels": res["labels"].tolist(),

@@ -1,1 +1,1 @@
-"""Utilities of the port: the fold logger."""
+"""Utilities of the port: the fold logger, the results-dir bootstrap, batch scoring (predict) and the HTTP scoring server."""

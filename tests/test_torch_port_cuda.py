@@ -523,3 +523,84 @@ def test_attention_bwd_raises_instead_of_falling_back(cuda):
         attention_bwd(wide, wide, wide, wide, stats[0], stats[0] + 1, stats[0])
     with pytest.raises(ValueError):  # statistics of the wrong shape
         attention_bwd(q, q, q, q, stats[:, :, :4], stats + 1, stats)
+
+
+def _flagship(key, device, dim=256, out=32):
+    from multimodal_fusion_tpu_torch.config import ModelConfig
+    from multimodal_fusion_tpu_torch.models.factory import ModelFactory
+
+    chans = ["wsi=features", "tma=cd3=features", "tma=cd8=features", "clinical=val", "clinical=mask"]
+    cfg = ModelConfig(model_type=key, n_classes=2, input_dim=dim, model_size="64*32", dropout=0.25,
+                      output_dim=out, inst_number=8, base_weight=0.9, subtyping=True,
+                      channels_used_in_model=chans, channel_input_dims={"clinical=val": 16})
+    return ModelFactory.create_model(cfg, seed=0, device=device)
+
+
+def _flagship_window(device, G=4, dim=256, seed=0):
+    """A padded window: WSI bags of 5-600 of 640 slots (some below
+    inst_number), two markers of 3-12 patches, clinical values with a mask."""
+    rng = np.random.default_rng(seed)
+    n = rng.integers(5, 601, G)
+    n[0] = 5
+    masks = {"wsi=features": np.arange(640)[None, :] < n[:, None]}
+    chans = {"wsi=features": rng.standard_normal((G, 640, dim)).astype(np.float32)}
+    for mk in ("cd3", "cd8"):
+        m = rng.integers(3, 13, G)
+        chans[f"tma={mk}=features"] = rng.standard_normal((G, 16, dim)).astype(np.float32)
+        masks[f"tma={mk}=features"] = np.arange(16)[None, :] < m[:, None]
+    chans["clinical=val"] = rng.standard_normal((G, 1, 16)).astype(np.float32)
+    chans["clinical=mask"] = (rng.random((G, 1, 16)) > 0.2).astype(np.float32)
+    put = lambda d: {k: torch.as_tensor(v, device=device) for k, v in d.items()}  # noqa: E731
+    return ({"channels": put(chans), "masks": put(masks)},
+            torch.as_tensor(np.arange(G) % 2, device=device))
+
+
+@pytest.mark.parametrize("key", ["svd_gate_random_clam", "svd_gate_random_clam_detach",
+                                 "deep_supervise_svd_gate_random", "clam_mlp"])
+def test_flagship_forward_card_matches_cpu(cuda, key):
+    """The flagship family's eval forward on the card against the CPU from
+    the same weights and window (true float32 on both: TF32 off), and no
+    launch of K1-K4 (no TPU kernel lies on this path)."""
+    card = _flagship(key, cuda)
+    host = _flagship(key, "cpu")
+    host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
+    case, label = _flagship_window(cuda)
+    host_case = {k: {c: t.cpu() for c, t in case[k].items()} for k in case}
+    counters = (similarity_rect, knn, attention_fwd, attention_bwd)
+    before = [fn.launches for fn in counters]
+    with torch.no_grad():
+        got = card(case, label)
+        loss = card.loss_fn(got["logits"], label, got)
+        want = host(host_case, label.cpu())
+        want_loss = host.loss_fn(want["logits"], label.cpu(), want)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in counters] == before
+    torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got["probabilities"].cpu(), want["probabilities"], rtol=0, atol=1e-5)
+    torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-5)
+
+
+def test_flagship_bf16_and_drop_prob_on_card(cuda, tmp_path):
+    """bfloat16 evaluation within 4e-2 of float32 probabilities; the detach
+    model at drop_prob 0 equals its forward without it, and at drop_prob 1
+    its fusion input is all zeros."""
+    from multimodal_fusion_tpu_torch.config import Configs, ModelConfig
+    from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
+
+    model = _flagship("svd_gate_random_clam_detach", cuda)
+    case, label = _flagship_window(cuda, seed=1)
+    cfg = Configs(model_config=ModelConfig())
+    cfg.model_config.extra["compute_dtype"] = "bfloat16"
+    tr = SurvivalTrainer(cfg, tmp_path, device=cuda)
+    _, p16, _, l16, _ = tr._eval_window(tr._compute_model(model), {**case, "label": label})
+    with torch.no_grad():
+        p32 = model(case, label)["probabilities"]
+        gen = torch.Generator(device=cuda)
+        zero = model(case, label, generator=gen.manual_seed(0), drop_prob=0.0)
+        ones = model(case, label, generator=gen.manual_seed(0), drop_prob=1.0)
+        head = model.fusion_prediction(torch.zeros(len(label), model.fusion_prediction[0].in_features,
+                                                      device=cuda))
+    assert p16.dtype == torch.float32 and torch.isfinite(l16).all()
+    assert float((p16 - p32).abs().max()) <= 4e-2
+    assert torch.equal(zero["probabilities"], p32)
+    assert torch.equal(ones["logits"], head)

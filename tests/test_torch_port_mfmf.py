@@ -234,13 +234,21 @@ def test_mfmf_constructor_checks_and_impls():
 
 
 def test_factory_registry_keys_match_jax():
-    """The port's registry carries the JAX package's keys; mfmf builds,
-    every other key raises naming the ROADMAP item that ports it."""
+    """The port's registry carries the JAX package's keys; mfmf and the ten
+    keys of the flagship family build, every other key raises naming the
+    ROADMAP item that ports it."""
+    from multimodal_fusion_tpu_torch.models.factory import _ITEM_9
+
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
-    for key in sorted(set(MODEL_REGISTRY) - {"mfmf"}):
+    for key in sorted(set(MODEL_REGISTRY) - {"mfmf"} - set(_ITEM_9)):
         cfg = tconfig.ModelConfig(model_type=key)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item (9|12)"):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 12"):
             ModelFactory.create_model(cfg, device="cpu")
+    assert len(_ITEM_9) == 10
+    for key, cls in _ITEM_9.items():
+        cfg = tconfig.ModelConfig(model_type=key, input_dim=D_IN, model_size="8*4", output_dim=8,
+                                  channels_used_in_model=["wsi=features", "tma=cd3=features"])
+        assert type(ModelFactory.create_model(cfg, device="cpu")) is cls
     with pytest.raises(ValueError, match="Unknown model type"):
         ModelFactory.create_model({"model_type": "nope"}, device="cpu")
     m = ModelFactory.create_model(_port_config(_jax_config()).to_dict(), seed=0, device="cpu")

@@ -153,10 +153,10 @@ def test_trainer_raises_on_unported_options(mfmf_data, tmp_path):
         _, tc = _configs(chans, **exp)
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             SurvivalTrainer(tc, tmp_path, device="cpu")
+    # bfloat16 evaluation is ported: the trainer takes it
     _, tc = _configs(chans)
     tc.model_config.extra["compute_dtype"] = "bfloat16"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        SurvivalTrainer(tc, tmp_path, device="cpu")
+    assert SurvivalTrainer(tc, tmp_path, device="cpu").compute_dtype == torch.bfloat16
 
 
 def test_dataset_matches_jax(mfmf_data):
