@@ -5,7 +5,7 @@
 
 Builds the port's CUDA kernels from ``multimodal_fusion_tpu_torch/csrc``,
 holds each against its plain PyTorch version on the card, and drives the
-port's three paths through their entry points:
+port's paths through their entry points:
 
 - the per-slide hypergraph build at the benchmark's shape (8 slides x 4096
   patches x 1024-d features + 32 TMA cores, 100/10/5/10,
@@ -32,7 +32,20 @@ port's three paths through their entry points:
   ``evaluate_fold`` cases/s; the HTTP scoring server (``make_server``) over
   a results dir of 5 fold checkpoints, checked against ``evaluate_fold``
   run directly and against a CPU server; a profile of one inference
-  window.
+  window;
+- the flagship's training, on which no TPU kernel lies either: one
+  16-case training window of ``combined_svd_gate_random_clam.sh``'s config
+  on the card against a CPU run of the port from the same weights, window
+  and draws (cuSOLVER may choose other signs of the dominant singular
+  vector than the CPU's LAPACK: the flipped cases are counted, and with
+  any flipped the gradient is held at lambda1 = 0, which no sign moves);
+  ``rank1_svd_loss`` at [64, 128, 7] with its singular values, flip count
+  and sign-aligned value, its "gram" impl, the Jacobi eigensolver, the
+  CLIP, AUCM, Cox and volume losses card vs CPU; remat on against off;
+  training cases/s over 64-case windows on the device tables, bench.py's
+  training cell in slides/s, the training CLI over one fold of phase 12's
+  cases and ``predict`` over the directory it wrote; a profile of one
+  training window and of its SVD group loss.
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
@@ -45,6 +58,7 @@ events and stand beside the card's name and power limit.
 
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import json
 import shutil
@@ -97,6 +111,9 @@ FLAG_DIM, FLAG_WINDOW = 128, 16
 # WSI x 32 TMA (cd3) patches x 1024 and clinical values, held on the card
 INF_BATCH, INF_WSI, INF_TMA, INF_BATCHES, INF_WINDOWS = 8, 4096, 32, 32, 5
 SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64, 160)
+# bench.py's training cell (run_training_ours, bench.py:344-412): 16 steps
+# of 8 cases at the inference cell's shape
+BENCH_TRAIN_STEPS = 16
 
 
 def _card_line() -> str:
@@ -326,15 +343,18 @@ class _CsvCases:
 
 
 class _CaseTable:
-    """The dataset interface ``SurvivalTrainer.train_fold`` reads
-    (``case_ids``, ``labels``, ``get_case``) over cases held in host
-    memory: the card's machine has no h5py or pandas to read the HDF5
-    layout that ``data.multimodal.MultimodalDataset`` reads."""
+    """The dataset interface ``SurvivalTrainer.train_fold`` and the training
+    CLI's ``run`` read (``case_ids``, ``labels``, ``case_to_patient``,
+    ``get_case``) over cases held in host memory: the card's machine has no
+    h5py or pandas to read the HDF5 layout that
+    ``data.multimodal.MultimodalDataset`` reads.  Patient ids are phase
+    16's (1000 + the case's index)."""
 
     has_survival_time = False
 
     def __init__(self, raws, labels):
         self.case_ids = [f"case_{i:03d}" for i in range(len(raws))]
+        self.case_to_patient = {c: str(1000 + i) for i, c in enumerate(self.case_ids)}
         self._cases = dict(zip(self.case_ids, zip(raws, (int(x) for x in labels))))
         self.labels = np.asarray(labels, np.int64)
 
@@ -453,6 +473,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(ROOT))
     from multimodal_fusion_tpu_torch.channels import TMA_MARKERS, parse_channels
+    from multimodal_fusion_tpu_torch.cli import main_survival as cli_main
     from multimodal_fusion_tpu_torch.config import Configs, ExperimentConfig, ModelConfig
     from multimodal_fusion_tpu_torch.data.splits import create_k_fold_splits
     from multimodal_fusion_tpu_torch.data.tma_extraction import (
@@ -484,6 +505,15 @@ def main() -> int:
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
     from multimodal_fusion_tpu_torch.ops.knn import knn_indices, knn_indices_blockwise
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
+    from multimodal_fusion_tpu_torch.ops.losses import (
+        _jacobi_eigh_desc,
+        aucm_loss,
+        clip_alignment_loss,
+        cox_ph_loss,
+        cross_entropy,
+        rank1_svd_loss,
+        volume_loss,
+    )
     from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
         similarity_rect,
         similarity_rect_plain,
@@ -494,7 +524,7 @@ def main() -> int:
     from multimodal_fusion_tpu_torch.train.optim import make_optimizer
     from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
     from multimodal_fusion_tpu_torch.utils import results_io
-    from multimodal_fusion_tpu_torch.utils.predict import ensemble_rows, write_csv
+    from multimodal_fusion_tpu_torch.utils.predict import ensemble_rows, predict, write_csv
     from multimodal_fusion_tpu_torch.utils.serve import make_server
 
     dev = resolve_device("cuda")
@@ -1895,6 +1925,468 @@ def main() -> int:
                     s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
         no_kernel_launches("phase 17")
 
+    # ---------------------------------------------------------------- 18
+    flag_train = {}  # directory, trainer, model and timed window step, read by phases 19-20
+
+    def flag_train_configs(**model):
+        """combined_svd_gate_random_clam.sh's model and experiment configs
+        (Adam lr 1e-4 with coupled L2 1e-5, the plateau scheduler, windows
+        of 64 cases, 10 folds; epochs cut to 2)."""
+        mc = flag_config()
+        for k, v in model.items():
+            setattr(mc, k, v)
+        ec = ExperimentConfig(exp_name="combined_svd_gate_random_clam", seed=5678, k_folds=10,
+                              max_epochs=2, batch_size=64, lr=1e-4, optimizer="adam",
+                              weight_decay=1e-5, scheduler="plateau",
+                              scheduler_params={"mode": "min", "patience": 15, "factor": 0.5},
+                              device_data=True, target_channels=list(mc.channels_used_in_model))
+        return mc, ec
+
+    def host_copy(model, mc):
+        host = ModelFactory.create_model(mc, device="cpu")
+        host.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
+        return host
+
+    def grad_errors(card, host):
+        """Relative L2 error of each parameter's gradient on the card against
+        the CPU's; a tensor with a gradient on one side only counts inf.  A
+        binary CLAM's ``attention_c`` bias shifts every attention score of a
+        bag by one constant, which the softmax and the top-k selection
+        remove: its gradient is 0 in exact arithmetic and rounding noise on
+        both sides, so it is held against the norm of its layer's weight
+        gradient instead of its own."""
+        cpu = dict(host.named_parameters())
+        errs = {}
+        for n, p in card.named_parameters():
+            g, want = p.grad, cpu[n].grad
+            if g is None and want is None:
+                continue
+            if g is None or want is None:
+                errs[n] = float("inf")
+                continue
+            scale = cpu[n.replace("attention_c.bias", "attention_c.weight")].grad.norm()
+            errs[n] = float((g.cpu() - want).norm() / scale.clamp_min(1e-30))
+        return errs
+
+    def card_vs_cpu(label, fn, arrays, grad_idx, bar_value=1e-5, bar_grad=1e-4):
+        """``fn`` (a scalar loss) on the card and on the CPU from the same
+        float32 arrays: the value within ``bar_value`` relative, each
+        gradient within ``bar_grad`` relative L2."""
+        out = {}
+        for d in (dev, "cpu"):
+            ts = [torch.tensor(a, device=d, requires_grad=i in grad_idx) for i, a in enumerate(arrays)]
+            v = fn(*ts)
+            v.backward()
+            out[d] = (v.detach().cpu(), [ts[i].grad.cpu() for i in grad_idx])
+        (vc, gc), (vh, gh) = out[dev], out["cpu"]
+        v_err = float((vc - vh).abs() / vh.abs().clamp_min(1e-30))
+        g_err = max(_rel_l2_all(a, b) for a, b in zip(gc, gh))
+        s.check(v_err <= bar_value and g_err <= bar_grad,
+                f"{label}, card vs CPU: value {float(vc):.6f} within {v_err:.2e} <= {bar_value:g} "
+                f"relative, gradients within {g_err:.2e} <= {bar_grad:g} relative L2")
+        return gc
+
+    def svd_factors(features):
+        """rank1_svd_loss's normalisation and SVD: (S, U1) of [G, D, M]."""
+        feats = features / (torch.linalg.norm(features, dim=1, keepdim=True) + 1e-8)
+        U, S, _ = torch.linalg.svd(feats, full_matrices=False)
+        return S, U[:, :, 0]
+
+    def rank1_from_factors(S, U1, tau1, tau2, lambda1):
+        """rank1_svd_loss's value from given (S, U1), without chunking."""
+        zeros = torch.zeros(S.shape[0], dtype=torch.int64)
+        loss2 = cross_entropy(U1 @ U1.T / tau2, torch.arange(U1.shape[0]))
+        return cross_entropy(S / tau1, zeros) + lambda1 * loss2
+
+    def flagship_train_check_phase():
+        """One flagship training window on the card against a CPU run of the
+        port from the same weights, window and draws; the group losses and
+        the Jacobi eigensolver card vs CPU; remat on and off on the card."""
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        mc, ec = flag_train_configs()
+        td = flag_train.setdefault("dir", Path(tempfile.mkdtemp(prefix="flagtrain_")))
+        tr = SurvivalTrainer(Configs(ec, mc), td / "card", device=dev)
+        cpu_tr = SurvivalTrainer(Configs(ec, mc), td / "cpu", device="cpu")
+        window = tr._to_device(make_window(raws[:FLAG_WINDOW], labels[:FLAG_WINDOW]))
+        cpu_window = {k: {c: t.cpu() for c, t in v.items()} if isinstance(v, dict) else v.cpu()
+                      for k, v in window.items()}
+        label = window["label"]
+        card = ModelFactory.create_model(mc, seed=0, device=dev)
+        host = host_copy(card, mc)
+        # the draws (dropout masks, the random partial loss) come from one
+        # CPU generator on both sides; the wrappers move them to the card
+        with torch.no_grad():
+            res = card({"channels": window["channels"], "masks": window["masks"]}, label,
+                       generator=torch.Generator().manual_seed(0), train=True)
+        stack = res["aligned_features_stack"]  # [G, M, output_dim]
+        feats = stack.transpose(1, 2)
+        s_card, u_card = svd_factors(feats)
+        s_cpu, u_cpu = svd_factors(feats.cpu())
+        flips = int(((u_card.cpu() * u_cpu).sum(1) < 0).sum())
+        s.log(f"  window of {FLAG_WINDOW}: aligned_features_stack {tuple(stack.shape)}; U1 sign flips, "
+              f"cuSOLVER vs the CPU's LAPACK on the same features: {flips} of {FLAG_WINDOW}")
+        s.check(float((s_card.cpu() - s_cpu).abs().max()) <= 1e-5,
+                f"window singular values, card vs CPU within "
+                f"{float((s_card.cpu() - s_cpu).abs().max()):.2e} <= 1e-5")
+        if flips:
+            s.log(f"  {flips} flipped cases: the whole-window gradient is held at lambda1 = 0 "
+                  "(loss2 reads U1's signs; loss1 and S do not)")
+            mc0, ec0 = flag_train_configs(lambda1=0.0)
+            card0 = ModelFactory.create_model(mc0, seed=0, device=dev)
+            card0.load_state_dict(card.state_dict())
+            card, host, tr, cpu_tr = (card0, host_copy(card0, mc0),
+                                      SurvivalTrainer(Configs(ec0, mc0), td / "card0", device=dev),
+                                      SurvivalTrainer(Configs(ec0, mc0), td / "cpu0", device="cpu"))
+        loss_card = float(tr._train_step(card, torch.optim.SGD(card.parameters(), lr=0.0), window,
+                                         torch.Generator().manual_seed(0)))
+        t0 = time.perf_counter()
+        loss_cpu = float(cpu_tr._train_step(host, torch.optim.SGD(host.parameters(), lr=0.0),
+                                            cpu_window, torch.Generator().manual_seed(0)))
+        s.log(f"  CPU run of one {FLAG_WINDOW}-case training window: {time.perf_counter() - t0:.1f} s (host)")
+        errs = grad_errors(card, host)
+        worst = max(errs, key=errs.get)
+        s.log("  largest gradient errors: " + ", ".join(
+            f"{n} {errs[n]:.2e}" for n in sorted(errs, key=errs.get, reverse=True)[:4]))
+        s.check(errs[worst] <= 1e-4, f"one training window's gradients (lambda1 = "
+                                     f"{card.lambda1}), card vs CPU: worst relative L2 "
+                                     f"{errs[worst]:.2e} <= 1e-4 over {len(errs)} tensors ({worst}; "
+                                     "the attention_c biases against their weights' gradient norm)")
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        s.check(rel <= 1e-5, f"the window's mean case loss, card {loss_card!r} vs CPU {loss_cpu!r}: "
+                             f"relative {rel:.2e} <= 1e-5")
+
+        # rank1_svd_loss at the main path's window, [64, 128, 7]
+        rng = np.random.default_rng(18)
+        f = rng.standard_normal((MFMF_BATCH, FLAG_DIM, 7), dtype=np.float32)
+        fc, fh = torch.as_tensor(f, device=dev), torch.as_tensor(f)
+        sc, uc = svd_factors(fc)
+        sh, uh = svd_factors(fh)
+        flipped = (uc.cpu() * uh).sum(1) < 0
+        s_err = float((sc.cpu() - sh).abs().max())
+        aligned = rank1_from_factors(sc.cpu(), uc.cpu() * torch.where(flipped, -1.0, 1.0)[:, None],
+                                     1.0, 1.0, 0.1)
+        want = rank1_svd_loss(fh, 1.0, 1.0, 0.1)[0]
+        raw = rank1_svd_loss(fc, 1.0, 1.0, 0.1)[0]
+        a_err = float((aligned - want).abs() / want.abs())
+        s.log(f"  rank1_svd_loss [64, 128, 7]: {int(flipped.sum())} of 64 U1 signs flipped against "
+              f"the CPU; card {float(raw):.6f}, CPU {float(want):.6f}")
+        s.check(s_err <= 1e-5 and a_err <= 1e-5,
+                f"rank1_svd_loss [64, 128, 7]: S within {s_err:.2e} <= 1e-5, the loss with the "
+                f"card's U1 re-signed to the CPU's within {a_err:.2e} <= 1e-5 relative")
+        if not bool(flipped.any()):
+            r_err = float((raw.cpu() - want).abs() / want.abs())
+            s.check(r_err <= 1e-5, f"rank1_svd_loss [64, 128, 7], no flips: card within {r_err:.2e} "
+                                   "<= 1e-5 relative")
+        card_vs_cpu("rank1_svd_loss [64, 128, 7], lambda1 = 0 (sign-free)",
+                    lambda x: rank1_svd_loss(x, 1.0, 1.0, 0.0)[0], [f], [0])
+        card_vs_cpu('rank1_svd_loss [64, 128, 7], impl="gram"',
+                    lambda x: rank1_svd_loss(x, 1.0, 1.0, 0.1, impl="gram")[0], [f], [0])
+        unit = f / np.linalg.norm(f, axis=1, keepdims=True)
+        gram = np.einsum("bdm,bdn->bmn", unit, unit).astype(np.float32)
+        w_lam = rng.standard_normal((MFMF_BATCH, 7), dtype=np.float32)
+        w_vec = rng.standard_normal((MFMF_BATCH, 7, 7), dtype=np.float32)
+
+        def jacobi_probe(g):
+            lam, vec = _jacobi_eigh_desc.apply(g, 8)
+            return (lam * torch.as_tensor(w_lam, device=g.device)).sum() + (
+                vec * torch.as_tensor(w_vec, device=g.device)).sum()
+
+        card_vs_cpu("_jacobi_eigh_desc [64, 7, 7] forward and closed-form backward",
+                    jacobi_probe, [gram], [0])
+        g_dev = torch.as_tensor(gram, device=dev).requires_grad_()
+
+        def jacobi_step():
+            jacobi_probe(g_dev).backward()
+
+        ms = s.cuda_ms(jacobi_step, iters=5, warmup=1)
+        s.timed(f"_jacobi_eigh_desc [64, 7, 7] forward + backward on the card: {ms:.2f} ms "
+                "(8 sweeps x 21 planes of small launches; off the flagship's path)")
+
+        # the CLIP group loss of clip_gate_random_clam at this window's width,
+        # and the other group and alignment losses
+        clip_cfg = flag_config("clip_gate_random_clam")
+        clip = ModelFactory.create_model(clip_cfg, seed=0, device=dev)
+        clip_host = host_copy(clip, clip_cfg)
+        lab = np.arange(MFMF_BATCH) % 2
+        stack64 = rng.standard_normal((MFMF_BATCH, 7, FLAG_DIM), dtype=np.float32)
+        card_vs_cpu("ClipGateRandomClam.group_loss_fn [64, 7, 128]",
+                    lambda x: (clip if x.is_cuda else clip_host).group_loss_fn(
+                        {"aligned_features_stack": x,
+                         "label": torch.as_tensor(lab, device=x.device)}), [stack64], [0])
+        a_, o1, o2 = (rng.standard_normal((MFMF_BATCH, FLAG_DIM), dtype=np.float32) / 8 for _ in range(3))
+        card_vs_cpu("clip_alignment_loss [64, 128]", clip_alignment_loss,
+                    [a_, o1, np.float32(np.log(1 / 0.07))], [0, 1, 2])
+        card_vs_cpu("volume_loss, 3 x [64, 128]", lambda x, y, z: volume_loss([x, y, z], 1.0)[0],
+                    [a_, o1, o2], [0, 1, 2])
+        risk = rng.standard_normal(MFMF_BATCH, dtype=np.float32)
+        time_ = rng.uniform(1, 60, MFMF_BATCH).astype(np.float32)
+        event = (rng.random(MFMF_BATCH) < 0.6).astype(np.float32)
+        card_vs_cpu("cox_ph_loss [64]", cox_ph_loss, [risk, time_, event], [0])
+        margins = rng.standard_normal(MFMF_BATCH, dtype=np.float32)
+        params = [np.float32(0.3), np.float32(-0.2), np.float32(0.7)]
+        g = card_vs_cpu("aucm_loss [64]", lambda m, a, b, al: aucm_loss(
+            m, torch.as_tensor(lab, device=m.device), a, b, al), [margins] + params, [0, 1, 2, 3])
+        pos = lab == 1
+        p = pos.mean()
+        dalpha = 2 * (p * (1 - p) + np.mean(p * margins * ~pos - (1 - p) * margins * pos)) \
+            - 2 * p * (1 - p) * params[2]
+        s.check(abs(float(g[3]) + dalpha) <= 1e-5 * max(1.0, abs(dalpha)),
+                f"aucm_loss: alpha's gradient on the card {float(g[3]):.6f} is the negated "
+                f"derivative {-dalpha:.6f} (gradient reversal)")
+
+        # remat on and off on the card: the same window, weights and draws
+        grads = {}
+        for remat in (False, True, False):
+            ec_r = dataclasses.replace(ec, remat=remat)
+            tr_r = SurvivalTrainer(Configs(ec_r, mc), td / f"remat_{remat}", device=dev)
+            m = ModelFactory.create_model(mc, device=dev)
+            m.load_state_dict(card.state_dict())
+            tr_r._train_step(m, torch.optim.SGD(m.parameters(), lr=0.0), window,
+                             torch.Generator().manual_seed(0))
+            grads.setdefault(remat, []).append({n: q.grad for n, q in m.named_parameters()
+                                                if q.grad is not None})
+        off, on, again = grads[False][0], grads[True][0], grads[False][1]
+        r_err = max(_rel_l2_all(on[n], off[n]) for n in off)
+        n_err = max(_rel_l2_all(again[n], off[n]) for n in off)
+        equal = sum(bool(torch.equal(on[n], off[n])) for n in off)
+        s.check(on.keys() == off.keys() and r_err <= 1e-6,
+                f"remat on vs off on the card: worst relative L2 {r_err:.2e} <= 1e-6 over {len(off)} "
+                f"gradients ({equal} bit-equal; two runs without remat differ by {n_err:.2e})")
+        del card, host, res, stack, grads
+        no_kernel_launches("phase 18")
+
+    # ---------------------------------------------------------------- 19
+    def flagship_training_phase():
+        """Main path: flagship training cases/s on the device tables,
+        bench.py's training cell in slides/s, then the training CLI's run
+        over one fold and the port's predict over its results directory."""
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        ds = _CaseTable(raws, labels)
+        mc, ec = flag_train_configs()
+        td = flag_train.setdefault("dir", Path(tempfile.mkdtemp(prefix="flagtrain_")))
+        split = create_k_fold_splits(ds.labels, ec.k_folds, ec.seed)[0]
+        tr = SurvivalTrainer(Configs(ec, mc), td / "timing", device=dev)
+        all_idx = np.concatenate([split.train_idx, split.val_idx, split.test_idx]).astype(np.int64)
+        tables, row_of = tr._device_tables(ds, all_idx)
+        rows = torch.as_tensor([row_of[int(i)] for i in split.train_idx], dtype=torch.int64)
+        model = tr._build_model(0)
+        opt = make_optimizer(ec.optimizer, ec.weight_decay, model.parameters(), ec.lr)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def device_window(i):
+            idx = rows[(i % 2) * MFMF_BATCH:(i % 2 + 1) * MFMF_BATCH].to(dev)
+            return tr._train_step(model, opt, tr._gather_window(tables, idx), gen)
+
+        device_window(0)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls, losses = [], []
+        for i in range(MFMF_TIMED_WINDOWS):
+            t0 = time.perf_counter()
+            losses.append(device_window(i + 1))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rates = sorted(MFMF_BATCH / w for w in walls)
+        median = float(np.median(walls))
+        flag_train.update(model=model, tables=tables, rows=rows, tr=tr, device_window=device_window,
+                          median_ms=median * 1e3)
+        s.check(bool(torch.isfinite(torch.stack(losses)).all()), "timed windows' losses finite")
+        s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+        s.log(f"  fold 0 of {ec.k_folds}: {len(split.train_idx)} train, {len(split.val_idx)} val, "
+              f"{len(split.test_idx)} test cases; the timed windows alternate its first two")
+        s.timed(f"flagship training, device path: median {MFMF_BATCH / median:.1f} cases/s over "
+                f"{MFMF_TIMED_WINDOWS} windows of {MFMF_BATCH} (min {rates[0]:.1f}, max "
+                f"{rates[-1]:.1f}): gather, forward, backward with the SVD group loss, Adam; peak "
+                f"device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with the tables")
+
+        # bench.py's training cell (run_training_ours): 8 cases x 4096 WSI x
+        # 32 TMA (cd3) x 1024 + clinical values, held on the card, f32, SVD
+        # and gate on, random loss off, Adam lr 1e-4 with L2 1e-4
+        chans = ["wsi=features", "tma=cd3=features", "clinical=val", "clinical=mask"]
+        mcb = ModelConfig(model_type="svd_gate_random_clam", n_classes=2, input_dim=DIM,
+                          model_size="64*32", dropout=0.25, output_dim=128,
+                          channels_used_in_model=chans, channel_input_dims={"clinical=val": 16})
+        mcb.extra.update(enable_svd=True, enable_dynamic_gate=True, enable_random_loss=False)
+        trb = SurvivalTrainer(Configs(ExperimentConfig(batch_size=INF_BATCH), mcb),
+                              td / "bench", device=dev)
+        rng = np.random.default_rng(0)
+        shapes = {"wsi=features": (INF_BATCH, INF_WSI, DIM), "tma=cd3=features": (INF_BATCH, INF_TMA, DIM),
+                  "clinical=val": (INF_BATCH, 1, 16)}
+        channels = {k: torch.as_tensor(rng.standard_normal(v, dtype=np.float32), device=dev)
+                    for k, v in shapes.items()}
+        channels["clinical=mask"] = torch.ones((INF_BATCH, 1, 16), device=dev)
+        win = {"channels": channels,
+               "masks": {"wsi=features": torch.ones((INF_BATCH, INF_WSI), dtype=torch.bool, device=dev),
+                         "tma=cd3=features": torch.ones((INF_BATCH, INF_TMA), dtype=torch.bool, device=dev)},
+               "label": torch.as_tensor(np.tile([0, 1], INF_BATCH // 2), device=dev)}
+        mb = trb._build_model(0)
+        optb = make_optimizer("adam", 1e-4, mb.parameters(), 1e-4)
+        genb = torch.Generator(device=dev).manual_seed(0)
+
+        def bench_run():
+            for _ in range(BENCH_TRAIN_STEPS):
+                out = trb._train_step(mb, optb, win, genb)
+            torch.cuda.synchronize()
+            return out
+
+        bench_run()
+        walls = []
+        for _ in range(MFMF_TIMED_WINDOWS):
+            t0 = time.perf_counter()
+            out = bench_run()
+            walls.append(time.perf_counter() - t0)
+        rates = sorted(INF_BATCH * BENCH_TRAIN_STEPS / w for w in walls)
+        median = float(np.median(walls))
+        s.check(bool(torch.isfinite(out)), "bench training cell: loss finite")
+        s.timed(f"bench.py's training cell: median {INF_BATCH * BENCH_TRAIN_STEPS / median:.1f} "
+                f"slides/s over {MFMF_TIMED_WINDOWS} runs of {BENCH_TRAIN_STEPS} steps of "
+                f"{INF_BATCH} (min {rates[0]:.1f}, max {rates[-1]:.1f}); "
+                f"{1e3 * median / BENCH_TRAIN_STEPS:.2f} ms a step")
+        del win, channels, mb, optb
+
+        # the training CLI over the in-memory cases: the script's flags, 2
+        # epochs of its last fold (--start_k_fold 9 of --k 10)
+        shorthands = ["wsi", "tma"] + list(TABULAR_DIMS)
+        results = td / "cli"
+        args = cli_main.parse_args(
+            ["--results_dir", str(results), "--exp_code", "combined_svd_gate_random_clam",
+             "--model_type", "svd_gate_random_clam", "--target_channels", *shorthands,
+             "--channels_used_in_model", *shorthands, "--k", "10", "--start_k_fold", "9",
+             "--max_epochs", "2", "--lr", "1e-4", "--lr_scheduler", "plateau",
+             "--lr_scheduler_params", '{"mode": "min", "patience": 15, "factor": 0.5}',
+             "--reg", "1e-5", "--opt", "adam", "--batch_size", "64", "--input_dim", str(DIM),
+             "--dropout", "0.25", "--base_weight", "0.9", "--inst_loss_fn", "ce",
+             "--model_size", "64*32", "--inst_number", "8", "--output_dim", str(FLAG_DIM),
+             "--alignment_layer_num", "2", "--lambda1", "0.1", "--lambda2", "0.1", "--tau1", "1.0",
+             "--tau2", "1.0", "--weight_random_loss", "0.1", "--early_stopping", "--gate",
+             "--subtyping", "--enable_svd", "--enable_dynamic_gate", "--enable_random_loss",
+             "--tpu_opts", '{"device_data": true}', "--seed", "5678", "--device", "cuda"])
+        t0 = time.perf_counter()
+        out_dir = cli_main.run(args, ds)
+        wall = time.perf_counter() - t0
+        names = {p.name for p in out_dir.iterdir()}
+        want_files = {"configs_combined_svd_gate_random_clam.json", "splits_9.csv", "s_9_checkpoint.npz",
+                      "fold_9_epochs.csv", "fold_9_summary.json", "summary.csv",
+                      "detailed_results_for_plotting.json"}
+        s.check(want_files <= names, f"cli.main_survival.run: {sorted(want_files - names) or 'all'} "
+                                     f"result files written ({len(names)} files)")
+        fold = json.loads((out_dir / "fold_9_summary.json").read_text())
+        s.check(all(np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in fold["history"]),
+                f"CLI fold 9: losses finite ({len(fold['history'])} epochs)")
+        fold9 = create_k_fold_splits(ds.labels, 10, 5678)[9]
+        s.timed(f"cli.main_survival.run, fold 9 of 10 ({len(fold9.train_idx)} train, "
+                f"{len(fold9.val_idx)} val, {len(fold9.test_idx)} test cases), 2 epochs and "
+                f"evaluation, its device tables included: {wall:.2f} s")
+
+        # the port scores the directory it trained (phase 16's in-memory reader)
+        by_path = {f"h5/case_{i:03d}.h5": raw for i, raw in enumerate(raws)}
+        names_ = ("deceased", "living")
+        csv_rows = [{"patient_id": str(1000 + i), "case_id": f"case_{i:03d}",
+                     "label": names_[int(lab)], "h5_file_path": f"h5/case_{i:03d}.h5"}
+                    for i, lab in enumerate(labels)]
+        csv_path = td / "cases.csv"
+        write_csv(csv_path, csv_rows)
+        original = results_io.build_dataset
+        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None: _CsvCases(
+            csv_path, by_path)
+        try:
+            res = predict(out_dir, csv_path, out_dir, device=dev)
+            tr_cli = SurvivalTrainer(Configs.load(out_dir / "configs_combined_svd_gate_random_clam.json"),
+                                     out_dir, device=dev)
+            ds_csv = results_io.build_dataset(tr_cli.configs, csv_path, out_dir)
+            direct = tr_cli.evaluate_fold(ds_csv, FoldSplit(empty_idx, empty_idx,
+                                                            np.arange(len(ds_csv))), 9)
+        finally:
+            results_io.build_dataset = original
+        got = {r["case_id"]: float(r["prob_1"]) for r in res["cases"]}
+        err = max(abs(got[c] - p[1]) for c, p in zip(direct["patient_ids"], direct["probs"]))
+        s.check(res["n_cases_scored"] == MFMF_CASES and res["folds"] == [9] and err <= 1e-6,
+                f"predict over the CLI's results dir: {res['n_cases_scored']} cases, folds "
+                f"{res['folds']}, prob_1 within {err:.2e} <= 1e-6 of evaluate_fold run directly")
+        no_kernel_launches("phase 19")
+
+    # ---------------------------------------------------------------- 20
+    def flagship_train_profile_phase():
+        """One phase-19 training window under the profiler: device busy
+        share, device ops, the longest device and host ops, idle gaps; then
+        the SVD group loss alone, forward and backward, host and device."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        reset_counts()
+        step = flag_train["device_window"]
+        step(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = _device_events(prof)
+        if not events:
+            s.log("  profiler saw no device time: device busy share not measured")
+        else:
+            busy_ms = sum(us for _, us in events) / 1e3
+            s.timed(f"one {MFMF_BATCH}-case flagship training window under torch.profiler: wall "
+                    f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% of "
+                    f"the profiled wall), {sum(e.count for e, _ in events)} device ops")
+            s.timed(f"estimate: profiled device time over phase 19's median {flag_train['median_ms']:.2f} "
+                    f"ms per window = {100 * busy_ms / flag_train['median_ms']:.1f}% device busy (two runs)")
+            for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
+                s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+            host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+            for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
+                s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
+            trace = flag_train["dir"] / "train_trace.json"
+            prof.export_chrome_trace(str(trace))
+            span, busy, gaps = _device_gaps(trace)
+            if span > 0:
+                s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
+                        f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
+                        f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
+                for us, before, after in gaps[:5]:
+                    s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+
+        # the SVD group loss of one window alone: forward + backward
+        model, tr, rows = flag_train["model"], flag_train["tr"], flag_train["rows"]
+        idx = rows[:MFMF_BATCH].to(dev)
+        win = tr._gather_window(flag_train["tables"], idx)
+        with torch.no_grad():
+            res = model({"channels": win["channels"], "masks": win["masks"]}, win["label"],
+                        generator=torch.Generator(device=dev).manual_seed(0), train=True)
+        x = res["aligned_features_stack"].detach().requires_grad_()
+        group = {"label": win["label"]}
+        del win, res
+
+        def group_loss():
+            x.grad = None
+            model.group_loss_fn(dict(group, aligned_features_stack=x)).backward()
+
+        group_loss()
+        torch.cuda.synchronize()
+        host_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            group_loss()
+            host_ms.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            group_loss()
+            torch.cuda.synchronize()
+        dev_ms = sum(us for _, us in _device_events(prof)) / 1e3
+        waits = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CPU
+                    and ("Synchronize" in e.key or "Memcpy" in e.key))
+        s.timed(f"SVD group loss of one window ([{MFMF_BATCH}, {FLAG_DIM}, 7], forward + backward): "
+                f"host {float(np.median(host_ms)):.2f} ms a call (median of 5, the call returns after "
+                f"its host waits), device {dev_ms:.2f} ms, {waits} synchronising host calls "
+                "(cudaStreamSynchronize / cudaMemcpy) a call")
+        for e, us in sorted(_device_events(prof), key=lambda x: x[1], reverse=True)[:4]:
+            s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        no_kernel_launches("phase 20")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -1912,7 +2404,10 @@ def main() -> int:
     s.phase("15. main path: flagship inference throughput", flagship_inference_phase)
     s.phase("16. main path: serving", serving_phase)
     s.phase("17. where one flagship inference window's time goes", flagship_profile_phase)
-    for d in (mfmf, flag):
+    s.phase("18. flagship training window, card vs CPU", flagship_train_check_phase)
+    s.phase("19. main path: flagship training", flagship_training_phase)
+    s.phase("20. where one flagship training window's time goes", flagship_train_profile_phase)
+    for d in (mfmf, flag, flag_train):
         if "dir" in d:
             shutil.rmtree(d["dir"], ignore_errors=True)
 

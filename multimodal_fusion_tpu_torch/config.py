@@ -151,8 +151,8 @@ class ExperimentConfig:
     # execution options (JAX package names)
     mesh_shape: Optional[Dict[str, int]] = None  # e.g. {"data": 8}
     dtype: str = "float32"
-    # rematerialisation of per-case forwards in the backward pass (the port
-    # raises: ROADMAP Queue 1 item 11)
+    # rematerialisation: recompute the window's forward in the backward pass
+    # instead of keeping its activations (torch.utils.checkpoint)
     remat: bool = False
     # windows per device dispatch in the JAX package (lax.scan, numerics
     # equal to sequential steps); the port runs them one after another

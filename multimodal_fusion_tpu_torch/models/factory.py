@@ -1,9 +1,9 @@
 """Model factory (counterpart of ``multimodal_fusion_tpu.models.factory``).
 
-The registry carries the JAX package's keys.  ``mfmf``, MIL, CLAM, the
-ClamMLP trunk and the flagship svd_gate family are ported; every other key
-raises ``NotImplementedError`` naming ROADMAP Queue 1 item 12 (the rest
-of the zoo), which ports it.
+The registry carries the JAX package's keys.  ``mfmf``, MIL, CLAM,
+AUC-CLAM, the ClamMLP trunk, the flagship svd_gate family and its Cox
+variant are ported; every other key raises ``NotImplementedError`` naming
+ROADMAP Queue 1 item 12 (the rest of the zoo), which ports it.
 """
 
 from __future__ import annotations
@@ -14,9 +14,11 @@ import torch
 
 from multimodal_fusion_tpu_torch.config import ModelConfig
 from multimodal_fusion_tpu_torch.device import resolve_device
+from multimodal_fusion_tpu_torch.models.auc_clam import AUCCLAM
 from multimodal_fusion_tpu_torch.models.base import BaseModel
 from multimodal_fusion_tpu_torch.models.clam import CLAM, MILFC
 from multimodal_fusion_tpu_torch.models.clam_mlp import ClamMLP, ClamMLPDetach
+from multimodal_fusion_tpu_torch.models.cox import CoxSVDGateClam
 from multimodal_fusion_tpu_torch.models.mfmf import MFMF
 from multimodal_fusion_tpu_torch.models.svd_gate import (
     ClipGateRandomClam,
@@ -27,9 +29,10 @@ from multimodal_fusion_tpu_torch.models.svd_gate import (
     SVDGateRandomClamDetach,
 )
 
-_ITEM_9 = {
+_PORTED = {
     "mil": MILFC,
     "clam": CLAM,
+    "auc_clam": AUCCLAM,
     "clam_mlp": ClamMLP,
     "clam_mlp_detach": ClamMLPDetach,
     "svd_gate_random_clam": SVDGateRandomClam,
@@ -38,18 +41,18 @@ _ITEM_9 = {
     "clip_gate_random_clam_detach": ClipGateRandomClamDetach,
     "deep_supervise_svd_gate_random": DeepSuperviseSVDGateRandomClam,
     "deep_supervise_svd_gate_random_detach": DeepSuperviseSVDGateRandomClamDetach,
+    "cox_svd_gate_random_clam": CoxSVDGateClam,
+    "mfmf": MFMF,
 }
 _ITEM_12 = (
-    "auc_clam", "gate_shared_mil", "gate_mil", "gate_auc_mil", "gate_mil_detach",
+    "gate_shared_mil", "gate_mil", "gate_auc_mil", "gate_mil_detach",
     "svd_pool", "mdlm", "ps3", "fbp", "cust_omics", "svd_clam", "auto_connections",
-    "cox_svd_gate_random_clam",
 )
 
 # key -> model class, or the ROADMAP item that ports it
 MODEL_REGISTRY: Dict[str, Union[Type[BaseModel], str]] = {
-    **_ITEM_9,
+    **_PORTED,
     **{k: "ROADMAP Queue 1 item 12" for k in _ITEM_12},
-    "mfmf": MFMF,
 }
 
 

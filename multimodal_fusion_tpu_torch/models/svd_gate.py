@@ -14,13 +14,14 @@ channel's; ``loss_fn`` sums every result entry ending in ``_loss`` (which
 counts ``total_inst_loss`` twice and ``random_partial_loss`` beside the
 hinge).  Every loss is per case [G].
 
-The window group losses (rank-1 SVD, CLIP) are ROADMAP Queue 1 item 8:
-``group_loss_fn`` raises until they are ported, and the trainer refuses
-group-loss training.  Parameters carry the reference's ``state_dict``
-names (``TCPClassifier.<ch>.{0,3}``, ``TCPConfidenceLayer.<ch>.{0,1,2}``,
-``alignment_layers.<ch>.<i>``, ``Classifier.<ch>.{0,3}``,
-``clip_logit_scale``); :func:`survival_params_from_jax` carries the JAX
-models' parameters across.
+``group_loss_fn`` is the window group loss the trainer adds to the sum of
+the case losses: the rank-1 SVD loss over ``aligned_features_stack``
+[G, M, output_dim], or the CLIP loss in the Clip variants.  Parameters
+carry the reference's ``state_dict`` names (``TCPClassifier.<ch>.{0,3}``,
+``TCPConfidenceLayer.<ch>.{0,1,2}``, ``alignment_layers.<ch>.<i>``,
+``Classifier.<ch>.{0,3}``, ``clip_logit_scale``);
+:func:`survival_params_from_jax` carries the JAX models' parameters
+across.
 """
 
 from __future__ import annotations
@@ -37,9 +38,7 @@ from multimodal_fusion_tpu_torch.config import ModelConfig
 from multimodal_fusion_tpu_torch.models.base import Case, Result
 from multimodal_fusion_tpu_torch.models.clam_mlp import CLAM_CHANNELS, ClamMLP
 from multimodal_fusion_tpu_torch.models.common import dropout, torch_linear
-from multimodal_fusion_tpu_torch.ops.losses import cross_entropy
-
-_GROUP_LOSS = "window group losses are not ported yet: ROADMAP Queue 1 item 8"
+from multimodal_fusion_tpu_torch.ops.losses import cross_entropy, rank1_svd_loss
 
 
 class TCPClassifier(nn.Module):
@@ -100,6 +99,10 @@ class SVDGateRandomClam(ClamMLP):
             })
         if self.enable_svd:
             self.alignment_channels = sorted(config.get("alignment_channels") or self.used_modality)
+            self.tau1 = config.get("tau1", 0.1)
+            self.tau2 = config.get("tau2", 0.1)
+            self.lambda1 = config.get("lambda1", 1.0)
+            self.loss2_chunk_size = config.get("loss2_chunk_size")
             num_layers = config.get("alignment_layer_num", 2)
             self.alignment_layers = nn.ModuleDict({
                 ch: AlignmentStack(self.output_dim, num_layers, generator)
@@ -212,8 +215,13 @@ class SVDGateRandomClam(ClamMLP):
         return self.enable_svd
 
     def group_loss_fn(self, window_results: Result) -> torch.Tensor:
-        """Rank-1 SVD loss over the window (reference :283-303)."""
-        raise NotImplementedError(_GROUP_LOSS)
+        """Rank-1 SVD loss over the window (reference :283-303), "svd" impl:
+        the backend's singular-vector signs, as in the reference."""
+        if not self.enable_svd:
+            return torch.zeros((), device=window_results["label"].device)
+        feats = window_results["aligned_features_stack"].transpose(1, 2)  # [G, D, M]
+        loss, _ = rank1_svd_loss(feats, self.tau1, self.tau2, self.lambda1, self.loss2_chunk_size)
+        return loss
 
 
 class SVDGateRandomClamDetach(SVDGateRandomClam):
@@ -266,8 +274,24 @@ class ClipGateRandomClam(SVDGateRandomClam):
         return self.enable_clip
 
     def group_loss_fn(self, window_results: Result) -> torch.Tensor:
-        """CLIP InfoNCE over the window (reference clip_gate_random_clam.py:68-88)."""
-        raise NotImplementedError(_GROUP_LOSS)
+        """CLIP InfoNCE over the window, anchored on the last sorted modality
+        (reference clip_gate_random_clam.py:68-88).  The reference's quirk is
+        kept: its anchor-skip test ``m == self.clip_anchor_idx`` compares
+        0..M-1 with -1 and never fires, so the anchor-vs-anchor pair is
+        included and the sum is divided by M."""
+        if not self.enable_clip:
+            return torch.zeros((), device=window_results["label"].device)
+        feats = window_results["aligned_features_stack"].transpose(1, 2)  # [G, D, M]
+        tau = torch.exp(-self.clip_logit_scale)
+        feats = feats / (torch.linalg.norm(feats, dim=1, keepdim=True) + 1e-12)
+        B, _, M = feats.shape
+        anchor = feats[:, :, self.clip_anchor_idx]
+        target = torch.arange(B, device=feats.device)
+        total = torch.zeros((), dtype=feats.dtype, device=feats.device)
+        for m in range(M):
+            logits_xy = anchor @ feats[:, :, m].T / tau
+            total = total + cross_entropy(logits_xy, target) + cross_entropy(logits_xy.T, target)
+        return total / M
 
 
 class ClipGateRandomClamDetach(SVDGateRandomClamDetach, ClipGateRandomClam):
@@ -337,6 +361,8 @@ _JAX_TO_PORT = {
     ("alignment_layers", "<ch>", "layers", "<i>"): "alignment_layers.<ch>.<i>",
     ("ds_classifiers", "<ch>", "fc1"): "Classifier.<ch>.0",
     ("ds_classifiers", "<ch>", "fc2"): "Classifier.<ch>.3",
+    ("risk_head",): "risk_head",
+    ("risk_head_logits",): "risk_head_logits",
     # CLAM
     ("core", "fc"): "attention_net.0",
     ("core", "attn", "fc_a"): "attention_net.3.attention_a.0",
@@ -346,6 +372,10 @@ _JAX_TO_PORT = {
     ("core", "attn", "fc2"): "attention_net.3.module.3",
     ("instance_classifiers", "<i>"): "instance_classifiers.<i>",
 }
+
+
+# scalar parameters that keep their JAX names
+_SCALARS = {("clip_logit_scale",), ("auc_a",), ("auc_b",), ("auc_alpha",)}
 
 
 def _flatten(state: Mapping, prefix=()) -> Dict[tuple, object]:
@@ -381,8 +411,8 @@ def _port_prefix(module_path: Tuple[str, ...], is_clam: bool) -> str:
 
 
 def survival_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state dict of a MIL, CLAM, ClamMLP or svd_gate-family
-    model from the JAX model's parameters, given as a nested pure dict
+    """The port's state dict of a MIL, CLAM, AUC-CLAM, ClamMLP,
+    svd_gate-family or Cox model from the JAX model's parameters, given as a nested pure dict
     (``nnx.to_pure_dict(nnx.state(model, nnx.Param))``) or flat ``{path:
     array}`` with tuple or dotted-string paths.  Linear ``kernel`` [in, out]
     becomes ``weight`` [out, in]; names follow the reference state_dict
@@ -398,8 +428,8 @@ def survival_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
     out: Dict[str, torch.Tensor] = {}
     for parts, value in flat.items():
         arr = np.asarray(value, dtype=np.float32)
-        if parts == ("clip_logit_scale",):
-            out["clip_logit_scale"] = torch.from_numpy(arr.copy())
+        if parts in _SCALARS:
+            out[parts[0]] = torch.from_numpy(arr.copy())
             continue
         prefix, leaf = _port_prefix(parts[:-1], is_clam), parts[-1]
         if leaf == "kernel":

@@ -7,8 +7,14 @@ JAX package runs them:
 - one optimizer update per gradient-accumulation **window** of
   ``batch_size`` cases: the cases are padded to a shared bucket and run as
   one batched forward (the JAX package's vmap over cases is the port's
-  leading case axis), the window loss is ``sum(per-case losses) / G`` and
-  one optimizer step fires per window;
+  leading case axis), the window loss is ``(sum(per-case losses) +
+  group_loss) / G`` (reference trainer.py:799-831) and one optimizer step
+  fires per window;
+- window group losses (rank-1 SVD, CLIP, AUCM, Cox) read the window's
+  stacked results, its labels and, where the dataset CSV has them, the
+  cases' ``time`` and ``event``; models with ``stashes_group_logits``
+  (AUC-CLAM) add one group loss over the whole evaluated set to the
+  validation loss (reference trainer.py:906-912);
 - early stopping on a configurable metric (auc/acc/loss, mode max/min) with
   ``stop_epoch`` minimum (reference :487-578);
 - per-fold checkpoints, final val + test evaluation with AUROC, a
@@ -28,8 +34,13 @@ Execution options (``ExperimentConfig``):
   the JAX package's ``_make_eval_step`` does: a bfloat16 copy of the
   parameters and of the window's floating inputs, outputs cast back to
   float32 for the metrics.  Training stays float32.
-- ``mesh_shape`` and ``remat`` are not ported yet and raise
-  ``NotImplementedError`` naming their ROADMAP items.
+- ``remat``: the window's forward runs under ``torch.utils.checkpoint``
+  and is recomputed in the backward pass; the generator's state is saved
+  before the forward and replayed for the recompute, so dropout and the
+  random partial loss draw the same numbers and the gradients equal those
+  without remat.
+- ``mesh_shape`` is not ported yet and raises ``NotImplementedError``
+  naming ROADMAP Queue 1 item 16.
 
 Dropout draws from a ``torch.Generator`` on the run's device seeded like
 the JAX trainer's key (``seed * 1000 + fold``); the draws differ from
@@ -62,6 +73,10 @@ from multimodal_fusion_tpu_torch.utils.logging import FoldLogger
 # device_data="auto" takes the device tables only when they fit this
 # budget (the JAX package's rule, kept as it is)
 DEVICE_DATA_AUTO_BUDGET = 8 * 2**30
+
+# what a window carries to the device: ``time`` and ``event`` feed the Cox
+# group loss where the dataset has them
+_WINDOW_KEYS = ("channels", "masks", "label", "time", "event")
 
 
 class EarlyStopping:
@@ -116,6 +131,45 @@ def _tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def _group_eval_model(model):
+    """A copy of a ``stashes_group_logits`` model as it was built, whose
+    ``group_loss_fn`` the validation loss adds; None for other models.  The
+    copy keeps the initial AUCM a/b/alpha, as the JAX trainer's does (its
+    group-loss closure binds a copy of the model state taken before the
+    train steps donate the live one)."""
+    if not getattr(model, "stashes_group_logits", False):
+        return None
+    return copy.deepcopy(model)
+
+
+def _remat(forward, generator: Optional[torch.Generator]):
+    """``forward()`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward pass instead of kept.  The checkpoint
+    restores the global RNG states, not an explicit generator, so the
+    generator's state before the forward is replayed for the recompute and
+    the state after it put back (the recompute may stop early): the
+    recompute draws the dropout masks and random-loss draws of the
+    forward."""
+    from torch.utils.checkpoint import checkpoint
+
+    start = None if generator is None else generator.get_state()
+    recompute = False
+
+    def run():
+        nonlocal recompute
+        if not recompute or generator is None:
+            recompute = True
+            return forward()
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return forward()
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, use_reentrant=False)
+
+
 class SurvivalTrainer:
     def __init__(self, configs: Configs, log_dir: Union[str, Path],
                  device: Optional[Union[str, torch.device]] = None):
@@ -127,8 +181,7 @@ class SurvivalTrainer:
         if self.exp.mesh_shape:
             raise NotImplementedError("mesh_shape (data parallelism) is not ported yet: "
                                       "ROADMAP Queue 1 item 16")
-        if self.exp.get("remat", False):
-            raise NotImplementedError("remat is not ported yet: ROADMAP Queue 1 item 11")
+        self.remat = bool(self.exp.get("remat", False))
         # evaluation dtype (None: the parameters' float32)
         self.compute_dtype = (torch.bfloat16 if configs.model_config.get("compute_dtype", "float32")
                               == "bfloat16" else None)
@@ -143,12 +196,13 @@ class SurvivalTrainer:
 
     def _to_device(self, window) -> Dict[str, Any]:
         """A numpy window (``data.batching.make_window``) as tensors on the
-        run's device: channels float32, masks bool, labels int64."""
+        run's device: channels float32, masks bool, labels int64, and the
+        cases' float32 ``time`` and ``event`` where the window has them."""
         def put(x):
             t = torch.as_tensor(x)
             return t.to(self.device, dtype=torch.int64 if t.dtype == torch.int32 else None)
 
-        return {k: _tree_map(put, window[k]) for k in ("channels", "masks", "label")}
+        return {k: _tree_map(put, window[k]) for k in _WINDOW_KEYS if k in window}
 
     def _device_tables(self, dataset, indices):
         """The cases at ``indices`` as one device-resident table per channel
@@ -161,8 +215,9 @@ class SurvivalTrainer:
         row), or ``(None, None)`` when ``device_data`` is "auto" and the
         tables would exceed ``DEVICE_DATA_AUTO_BUDGET``."""
         raws, labels = [], []
-        for i in indices:
-            raw, label = dataset.get_case(dataset.case_ids[int(i)])
+        cids = [dataset.case_ids[int(i)] for i in indices]
+        for cid in cids:
+            raw, label = dataset.get_case(cid)
             raws.append(raw)
             labels.append(label)
         sizes = window_bag_sizes(raws)
@@ -192,6 +247,10 @@ class SurvivalTrainer:
                         t[r].copy_(torch.from_numpy(np.asarray(case[key][ch])))
                 else:
                     tables[key][r] = int(case[key])
+        if getattr(dataset, "has_survival_time", False):
+            for key, values in (("time", dataset.case_to_time), ("event", dataset.case_to_event)):
+                tables[key] = torch.as_tensor(np.asarray([values[c] for c in cids], np.float32),
+                                              device=self.device)
         row_of = {int(i): r for r, i in enumerate(indices)}
         return tables, row_of
 
@@ -201,8 +260,10 @@ class SurvivalTrainer:
         return _tree_map(lambda t: t.index_select(0, idx), tables)
 
     def _windows(self, dataset, indices: Sequence[int], G: int):
-        """Yield (case ids, numpy window) of <= G cases each."""
+        """Yield (case ids, numpy window) of <= G cases each, with the
+        cases' ``time`` and ``event`` when the dataset CSV has them."""
         case_ids = [dataset.case_ids[i] for i in indices]
+        with_time = getattr(dataset, "has_survival_time", False)
         for start in range(0, len(case_ids), G):
             chunk = case_ids[start : start + G]
             raws, labels = [], []
@@ -210,7 +271,11 @@ class SurvivalTrainer:
                 raw, label = dataset.get_case(cid)
                 raws.append(raw)
                 labels.append(label)
-            yield chunk, make_window(raws, labels)
+            window = make_window(raws, labels)
+            if with_time:
+                window["time"] = np.asarray([dataset.case_to_time[c] for c in chunk], np.float32)
+                window["event"] = np.asarray([dataset.case_to_event[c] for c in chunk], np.float32)
+            yield chunk, window
 
     def _windows_prefetched(self, dataset, indices: Sequence[int], G: int, depth: int = 2):
         """Producer-consumer wrapper over ``_windows``: the next windows'
@@ -273,15 +338,25 @@ class SurvivalTrainer:
     # ------------------------------------------------------------------
 
     def _train_step(self, model, optimizer, window, generator) -> torch.Tensor:
-        """One window update; returns the window's mean case loss (a 0-d
-        tensor left on the device)."""
+        """One window update: ``(sum of the case losses + the group loss) /
+        G``; returns the window's mean case loss (a 0-d tensor left on the
+        device)."""
         labels = window["label"]
         case = {"channels": window["channels"], "masks": window["masks"]}
-        res = model(case, labels, generator=generator, train=True)
-        losses = model.loss_fn(res["logits"], labels, res)
-        total = losses.sum() / labels.shape[0]
+
+        def forward():
+            res = model(case, labels, generator=generator, train=True)
+            return res, model.loss_fn(res["logits"], labels, res)
+
+        res, losses = _remat(forward, generator) if self.remat else forward()
+        total = losses.sum()
+        if model.has_group_loss():
+            group = dict(res, label=labels)
+            if "time" in window:  # the Cox partial likelihood's inputs
+                group["time"], group["event"] = window["time"], window["event"]
+            total = total + model.group_loss_fn(group)
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        (total / labels.shape[0]).backward()
         optimizer.step()
         return losses.detach().mean()
 
@@ -318,11 +393,13 @@ class SurvivalTrainer:
     # ------------------------------------------------------------------
 
     def _evaluate(self, dataset, indices, model, tables=None, row_of=None,
-                  drop_prob: Optional[float] = None, seed: int = 0) -> Dict[str, Any]:
+                  drop_prob: Optional[float] = None, seed: int = 0,
+                  group_model=None) -> Dict[str, Any]:
         """Evaluate the cases at ``indices`` in windows of min(batch_size,
         16); results stay on the device until one host sync at the end.
         ``drop_prob`` draws from a generator on the run's device seeded with
-        ``seed``."""
+        ``seed``.  ``group_model`` (models with ``stashes_group_logits``)
+        adds its group loss over all the evaluated cases to the loss."""
         G = min(self.exp.batch_size, 16)
         model = self._compute_model(model)
         generator = (None if drop_prob is None
@@ -339,12 +416,24 @@ class SurvivalTrainer:
         else:
             patient_ids, labels = [], []
             for chunk, window in self._windows(dataset, indices, G):
+                window.pop("time", None)  # evaluation reads channels, masks, labels
+                window.pop("event", None)
                 labels.append(np.asarray(window["label"]))
                 patient_ids.extend(chunk)
                 outs.append(self._eval_window(model, self._to_device(window), generator, drop_prob))
-        return self._eval_summary(dataset, outs, labels, patient_ids)
+        return self._eval_summary(dataset, outs, labels, patient_ids, group_model)
 
-    def _eval_summary(self, dataset, outs, all_labels, patient_ids) -> Dict[str, Any]:
+    def _eval_summary(self, dataset, outs, all_labels, patient_ids,
+                      group_model=None) -> Dict[str, Any]:
+        group_loss = None
+        if group_model is not None and outs:
+            # one group loss over the whole evaluated set, added to the
+            # case mean like the reference's batch_log['loss'] += group_loss
+            with torch.no_grad():
+                logits = torch.cat([o[0] for o in outs])
+                label = torch.as_tensor(np.concatenate(all_labels), dtype=torch.int64,
+                                        device=logits.device)
+                group_loss = float(group_model.group_loss_fn({"logits": logits, "label": label}))
         if outs:
             logits, probs, preds, losses, risk = (
                 torch.cat([o[j].reshape(o[j].shape[0], -1) for o in outs]).cpu().numpy()
@@ -360,7 +449,8 @@ class SurvivalTrainer:
             "auc": binary_auroc(probs[:, 1], labels) if probs.shape[1] == 2
             else multiclass_auroc_macro(probs, labels),
             "acc": accuracy(preds, labels),
-            "loss": float(losses.mean()),
+            "loss": float(losses.mean()) + (0.0 if group_loss is None
+                                             else group_loss / max(len(labels), 1)),
             "probs": probs,
             "preds": preds,
             "labels": labels,
@@ -382,9 +472,7 @@ class SurvivalTrainer:
         save_fold_split(split, dataset.case_ids, self.log_dir / f"splits_{fold_idx}.csv")
 
         model = self._build_model(fold_idx)
-        if model.has_group_loss():
-            raise NotImplementedError("window group losses are not ported yet: "
-                                      "ROADMAP Queue 1 item 8")
+        group_model = _group_eval_model(model)
         optimizer = make_optimizer(exp.optimizer, exp.weight_decay, model.parameters(), exp.lr)
         tables = row_of = None
         if exp.get("device_data", "auto"):  # "auto" and True both try; False skips
@@ -430,7 +518,8 @@ class SurvivalTrainer:
                         self._train_step(model, optimizer, self._to_device(window), generator))
             losses_np = torch.stack(epoch_losses).cpu().numpy() if epoch_losses else np.asarray([])
 
-            val = self._evaluate(dataset, split.val_idx, model, tables, row_of)
+            val = self._evaluate(dataset, split.val_idx, model, tables, row_of,
+                                 group_model=group_model)
             metric = val[exp.monitor_metric]
             schedule.plateau_step(val["loss"])
             improved = stopper.step(epoch, metric)
@@ -460,8 +549,9 @@ class SurvivalTrainer:
             # reference without the flag: persist and evaluate the final weights
             save_model(ckpt_path, model)
 
-        val = self._evaluate(dataset, split.val_idx, model, tables, row_of)
-        test = self._evaluate(dataset, split.test_idx, model, tables, row_of)
+        val = self._evaluate(dataset, split.val_idx, model, tables, row_of, group_model=group_model)
+        test = self._evaluate(dataset, split.test_idx, model, tables, row_of,
+                              group_model=group_model)
 
         # per-patient probability dump (reference trainer.py:1013)
         patient_results = {
@@ -504,8 +594,10 @@ class SurvivalTrainer:
         if drop_prob is not None and not getattr(model, "supports_drop_prob", False):
             raise ValueError(f"{type(model).__name__} does not support inference-time modality "
                              "dropout (drop_prob); use a *_detach variant")
+        group_model = _group_eval_model(model)
         load_model(Path(checkpoint_path or self.log_dir / f"s_{fold_idx}_checkpoint.npz"), model)
-        res = self._evaluate(dataset, split.test_idx, model, drop_prob=drop_prob, seed=seed)
+        res = self._evaluate(dataset, split.test_idx, model, drop_prob=drop_prob, seed=seed,
+                             group_model=group_model)
         return {k: res[k] for k in ("auc", "acc", "loss", "patient_ids")} | {
             "probs": res["probs"].tolist(),
             "labels": res["labels"].tolist(),

@@ -314,11 +314,31 @@ def test_detach_drop_prob():
 
 @pytest.mark.parametrize("key", ["svd_gate_random_clam", "clip_gate_random_clam"])
 def test_group_losses_wait_for_item_8(key, tmp_path):
-    model = ModelFactory.create_model(tconfig.ModelConfig.from_dict(_jax_config(key).to_dict()),
-                                      device="cpu")
-    assert model.has_group_loss()
-    with pytest.raises(NotImplementedError, match="item 8"):
-        model.group_loss_fn({})
+    """The window group loss (rank-1 SVD, "svd" impl, at the flagship
+    script's tau1 = tau2 = 1 and lambda1 = 0.1; CLIP with the anchor-self
+    pair) against the JAX model's ``group_loss_fn`` on the same window
+    results: the value and its gradient with respect to
+    ``aligned_features_stack``.  (Until the group losses were ported this
+    test pinned their refusal.)"""
+    jc = _jax_config(key, subtyping=True, tau1=1.0, tau2=1.0, lambda1=0.1)
+    jmodel = JaxFactory.create_model(jc, seed=0)
+    window = _window(3)
+    want, _ = _jax_eval(jmodel, window)
+    model = _port_model(jc, jmodel)
+    case, label = _port_window(window)
+    with torch.no_grad():
+        got = model(case, label)
+    stack = np.asarray(want["aligned_features_stack"])
+    np.testing.assert_allclose(got["aligned_features_stack"].numpy(), stack, **TOL)
+    jlabel = jnp.asarray(window["label"])
+    jval, jgrad = jax.value_and_grad(
+        lambda x: jmodel.group_loss_fn({"aligned_features_stack": x, "label": jlabel}))(jnp.asarray(stack))
+    x = torch.tensor(stack, requires_grad=True)
+    tval = model.group_loss_fn({"aligned_features_stack": x, "label": label})
+    tval.backward()
+    assert model.has_group_loss() and tval.shape == ()
+    np.testing.assert_allclose(tval.item(), float(jval), **TOL)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(jgrad), **TOL)
 
 
 def test_factory_resolves_the_device():

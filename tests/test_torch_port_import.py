@@ -49,6 +49,10 @@ required = {
     "multimodal_fusion_tpu_torch.utils.serve",
     "multimodal_fusion_tpu_torch.cli.predict",
     "multimodal_fusion_tpu_torch.cli.serve",
+    "multimodal_fusion_tpu_torch.models.auc_clam",
+    "multimodal_fusion_tpu_torch.models.cox",
+    "multimodal_fusion_tpu_torch.utils.seeding",
+    "multimodal_fusion_tpu_torch.cli.main_survival",
 }
 assert required <= set(names), sorted(required - set(names))
 print(len(names))

@@ -234,18 +234,20 @@ def test_mfmf_constructor_checks_and_impls():
 
 
 def test_factory_registry_keys_match_jax():
-    """The port's registry carries the JAX package's keys; mfmf and the ten
-    keys of the flagship family build, every other key raises naming the
-    ROADMAP item that ports it."""
-    from multimodal_fusion_tpu_torch.models.factory import _ITEM_9
+    """The port's registry carries the JAX package's keys; mfmf, the ten
+    keys of the flagship family, auc_clam and cox_svd_gate_random_clam
+    build, every other key raises naming the ROADMAP item that ports it."""
+    from multimodal_fusion_tpu_torch.models.factory import _PORTED
 
     assert set(MODEL_REGISTRY) == set(JAX_REGISTRY)
-    for key in sorted(set(MODEL_REGISTRY) - {"mfmf"} - set(_ITEM_9)):
+    for key in sorted(set(MODEL_REGISTRY) - set(_PORTED)):
         cfg = tconfig.ModelConfig(model_type=key)
         with pytest.raises(NotImplementedError, match=r"ROADMAP Queue 1 item 12"):
             ModelFactory.create_model(cfg, device="cpu")
-    assert len(_ITEM_9) == 10
-    for key, cls in _ITEM_9.items():
+    assert len(_PORTED) == 13
+    for key, cls in _PORTED.items():
+        if key == "mfmf":
+            continue
         cfg = tconfig.ModelConfig(model_type=key, input_dim=D_IN, model_size="8*4", output_dim=8,
                                   channels_used_in_model=["wsi=features", "tma=cd3=features"])
         assert type(ModelFactory.create_model(cfg, device="cpu")) is cls
