@@ -20,7 +20,8 @@ port's paths through their entry points:
   output_dim 128, 8 heads, windows of 64 cases) through
   ``SurvivalTrainer.train_fold`` on 160 in-memory cases, with the device
   tables and with host windows, checked against a CPU run of the port's
-  window step; its throughput and a profile of one window.  K4 (the
+  window step; remat's peak device memory of one window; its throughput
+  and a profile of one window.  K4 (the
   attention backward) is held against its plain version at MFMF's three
   block shapes first;
 - the flagship ``svd_gate_random_clam`` family's serving path, on which no
@@ -37,11 +38,12 @@ port's paths through their entry points:
   16-case training window of ``combined_svd_gate_random_clam.sh``'s config
   on the card against a CPU run of the port from the same weights, window
   and draws (cuSOLVER may choose other signs of the dominant singular
-  vector than the CPU's LAPACK: the flipped cases are counted, and with
-  any flipped the gradient is held at lambda1 = 0, which no sign moves);
-  ``rank1_svd_loss`` at [64, 128, 7] with its singular values, flip count
-  and sign-aligned value, its "gram" impl, the Jacobi eigensolver, the
-  CLIP, AUCM, Cox and volume losses card vs CPU; remat on against off;
+  vector than the CPU's LAPACK: the flipped cases are counted, and the
+  CPU run takes the card's signs, so the gradient is held at the config's
+  lambda1 = 0.1); ``rank1_svd_loss`` at [64, 128, 7] with its singular
+  values, flip count, and value and gradient at the card's signs, its
+  "gram" impl, the Jacobi eigensolver, the CLIP, AUCM, Cox and volume
+  losses card vs CPU; remat on against off, and its peak device memory;
   training cases/s over 64-case windows on the device tables, bench.py's
   training cell in slides/s, the training CLI over one fold of phase 12's
   cases and ``predict`` over the directory it wrote; a profile of one
@@ -58,6 +60,7 @@ events and stand beside the card's name and power limit.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import json
@@ -488,6 +491,7 @@ def main() -> int:
         clustered_slide,
         make_clustered_dataset,
     )
+    from multimodal_fusion_tpu_torch.models.base import checkpoint_replaying
     from multimodal_fusion_tpu_torch.models.factory import ModelFactory
     from multimodal_fusion_tpu_torch.models.mfmf import DEFAULT_FUSION_SEQUENCE
     from multimodal_fusion_tpu_torch.models.vit import vit_large_16
@@ -504,13 +508,13 @@ def main() -> int:
     )
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
     from multimodal_fusion_tpu_torch.ops.knn import knn_indices, knn_indices_blockwise
+    from multimodal_fusion_tpu_torch.ops import losses as losses_mod
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
     from multimodal_fusion_tpu_torch.ops.losses import (
         _jacobi_eigh_desc,
         aucm_loss,
         clip_alignment_loss,
         cox_ph_loss,
-        cross_entropy,
         rank1_svd_loss,
         volume_loss,
     )
@@ -1410,6 +1414,41 @@ def main() -> int:
                     f"K4 all-masked bag ({route or 'narrow_q'} route): dq = dk = 0, dv = sum_q do / Tk "
                     f"within {u_err:.2e} <= 1e-6")
 
+    def remat_peaks(label, mc, ec, state, window, gen_device):
+        """Peak device memory of one training window (forward, group loss,
+        backward) above what was allocated before it, in MiB: remat off,
+        the whole forward as one checkpoint, and remat on (each segment of
+        the model checkpointed on its own, as the trainer runs it).  The
+        same weights, window and draws each time; a zero learning rate."""
+        peaks = {}
+        for mode in ("off", "whole forward", "segments"):
+            m = ModelFactory.create_model(mc, device=dev)
+            m.load_state_dict(state)
+            tr_r = SurvivalTrainer(Configs(dataclasses.replace(ec, remat=mode == "segments"), mc),
+                                   tempfile.mkdtemp(prefix="remat_"), device=dev)
+            gen = torch.Generator(device=gen_device).manual_seed(0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            if mode == "whole forward":
+                labels = window["label"]
+                case = {"channels": window["channels"], "masks": window["masks"]}
+                res = checkpoint_replaying(m, (case, labels), {"train": True}, gen)
+                total = m.loss_fn(res["logits"], labels, res).sum()
+                if m.has_group_loss():
+                    total = total + m.group_loss_fn(dict(res, label=labels))
+                (total / labels.shape[0]).backward()
+                del res, total
+            else:
+                tr_r._train_step(m, torch.optim.SGD(m.parameters(), lr=0.0), window, gen)
+            torch.cuda.synchronize()
+            peaks[mode] = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+            del m
+        s.timed(f"{label}: peak device memory of one training window above its inputs and "
+                "weights: " + ", ".join(f"{k} {v:.1f} MiB" for k, v in peaks.items())
+                + f"; remat's segments {100 * (1 - peaks['segments'] / peaks['off']):.1f}% below off")
+        return peaks
+
     # ---------------------------------------------------------------- 12
     mfmf = {}  # trainer, model, tables and timing window, read by phase 13
     drawn = {}  # phase 12's in-memory cases, read by phases 14-16
@@ -1535,6 +1574,10 @@ def main() -> int:
         s.check(rel <= 1e-5, f"one window's loss, card {loss_card!r} vs CPU {loss_cpu!r}: relative "
                              f"{rel:.2e} <= 1e-5")
         del host, cpu_window, cpu_grads
+        peaks = remat_peaks(f"MFMF, a {MFMF_BATCH}-case window", mc, ec, card.state_dict(), window, dev)
+        s.check(peaks["segments"] < peaks["off"],
+                f"MFMF remat (each attention block a segment) lowers one window's peak: "
+                f"{peaks['segments']:.1f} < {peaks['off']:.1f} MiB")
 
         # throughput on the device path: the median of timed 64-case windows
         # (row gather + the trainer's step) after a warm-up
@@ -1992,11 +2035,31 @@ def main() -> int:
         U, S, _ = torch.linalg.svd(feats, full_matrices=False)
         return S, U[:, :, 0]
 
-    def rank1_from_factors(S, U1, tau1, tau2, lambda1):
-        """rank1_svd_loss's value from given (S, U1), without chunking."""
-        zeros = torch.zeros(S.shape[0], dtype=torch.int64)
-        loss2 = cross_entropy(U1 @ U1.T / tau2, torch.arange(U1.shape[0]))
-        return cross_entropy(S / tau1, zeros) + lambda1 * loss2
+    @contextlib.contextmanager
+    def card_signs_on_cpu():
+        """``rank1_svd_loss``'s SVD (``ops.losses._svd_rank1``) wrapped for a
+        card run followed by a CPU run of the same loss: the card's call
+        records its U1, and the CPU's call negates each case whose U1
+        points against the card's.  The sign is a constant factor per
+        case, so the CPU computes the value and the gradient of the loss
+        at the card's signs.  Yields the CPU calls' flip counts."""
+        plain = losses_mod._svd_rank1
+        card_u, flips = [], []
+
+        def svd(feats):
+            S, U1 = plain(feats)
+            if feats.is_cuda:
+                card_u.append(U1.detach().cpu())
+                return S, U1
+            sign = torch.where((U1.detach() * card_u.pop(0)).sum(1) < 0, -1.0, 1.0)
+            flips.append(int((sign < 0).sum()))
+            return S, U1 * sign[:, None]
+
+        losses_mod._svd_rank1 = svd
+        try:
+            yield flips
+        finally:
+            losses_mod._svd_rank1 = plain
 
     def flagship_train_check_phase():
         """One flagship training window on the card against a CPU run of the
@@ -2029,27 +2092,23 @@ def main() -> int:
         s.check(float((s_card.cpu() - s_cpu).abs().max()) <= 1e-5,
                 f"window singular values, card vs CPU within "
                 f"{float((s_card.cpu() - s_cpu).abs().max()):.2e} <= 1e-5")
-        if flips:
-            s.log(f"  {flips} flipped cases: the whole-window gradient is held at lambda1 = 0 "
-                  "(loss2 reads U1's signs; loss1 and S do not)")
-            mc0, ec0 = flag_train_configs(lambda1=0.0)
-            card0 = ModelFactory.create_model(mc0, seed=0, device=dev)
-            card0.load_state_dict(card.state_dict())
-            card, host, tr, cpu_tr = (card0, host_copy(card0, mc0),
-                                      SurvivalTrainer(Configs(ec0, mc0), td / "card0", device=dev),
-                                      SurvivalTrainer(Configs(ec0, mc0), td / "cpu0", device="cpu"))
-        loss_card = float(tr._train_step(card, torch.optim.SGD(card.parameters(), lr=0.0), window,
-                                         torch.Generator().manual_seed(0)))
-        t0 = time.perf_counter()
-        loss_cpu = float(cpu_tr._train_step(host, torch.optim.SGD(host.parameters(), lr=0.0),
-                                            cpu_window, torch.Generator().manual_seed(0)))
-        s.log(f"  CPU run of one {FLAG_WINDOW}-case training window: {time.perf_counter() - t0:.1f} s (host)")
+        # loss2 reads U1's signs: the CPU run takes the card's (see
+        # card_signs_on_cpu), so the gradient is held at lambda1 = 0.1
+        with card_signs_on_cpu() as step_flips:
+            loss_card = float(tr._train_step(card, torch.optim.SGD(card.parameters(), lr=0.0),
+                                             window, torch.Generator().manual_seed(0)))
+            t0 = time.perf_counter()
+            loss_cpu = float(cpu_tr._train_step(host, torch.optim.SGD(host.parameters(), lr=0.0),
+                                                cpu_window, torch.Generator().manual_seed(0)))
+        s.log(f"  CPU run of one {FLAG_WINDOW}-case training window: {time.perf_counter() - t0:.1f} s "
+              f"(host); its U1 re-signed to the card's in {step_flips[0]} of {FLAG_WINDOW} cases")
         errs = grad_errors(card, host)
         worst = max(errs, key=errs.get)
         s.log("  largest gradient errors: " + ", ".join(
             f"{n} {errs[n]:.2e}" for n in sorted(errs, key=errs.get, reverse=True)[:4]))
         s.check(errs[worst] <= 1e-4, f"one training window's gradients (lambda1 = "
-                                     f"{card.lambda1}), card vs CPU: worst relative L2 "
+                                     f"{card.lambda1}, the CPU at the card's U1 signs), card vs "
+                                     f"CPU: worst relative L2 "
                                      f"{errs[worst]:.2e} <= 1e-4 over {len(errs)} tensors ({worst}; "
                                      "the attention_c biases against their weights' gradient norm)")
         rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
@@ -2064,22 +2123,20 @@ def main() -> int:
         sh, uh = svd_factors(fh)
         flipped = (uc.cpu() * uh).sum(1) < 0
         s_err = float((sc.cpu() - sh).abs().max())
-        aligned = rank1_from_factors(sc.cpu(), uc.cpu() * torch.where(flipped, -1.0, 1.0)[:, None],
-                                     1.0, 1.0, 0.1)
         want = rank1_svd_loss(fh, 1.0, 1.0, 0.1)[0]
         raw = rank1_svd_loss(fc, 1.0, 1.0, 0.1)[0]
-        a_err = float((aligned - want).abs() / want.abs())
         s.log(f"  rank1_svd_loss [64, 128, 7]: {int(flipped.sum())} of 64 U1 signs flipped against "
-              f"the CPU; card {float(raw):.6f}, CPU {float(want):.6f}")
-        s.check(s_err <= 1e-5 and a_err <= 1e-5,
-                f"rank1_svd_loss [64, 128, 7]: S within {s_err:.2e} <= 1e-5, the loss with the "
-                f"card's U1 re-signed to the CPU's within {a_err:.2e} <= 1e-5 relative")
+              f"the CPU; card {float(raw):.6f}, CPU at its own signs {float(want):.6f}")
+        s.check(s_err <= 1e-5, f"rank1_svd_loss [64, 128, 7]: S within {s_err:.2e} <= 1e-5")
         if not bool(flipped.any()):
             r_err = float((raw.cpu() - want).abs() / want.abs())
             s.check(r_err <= 1e-5, f"rank1_svd_loss [64, 128, 7], no flips: card within {r_err:.2e} "
                                    "<= 1e-5 relative")
-        card_vs_cpu("rank1_svd_loss [64, 128, 7], lambda1 = 0 (sign-free)",
-                    lambda x: rank1_svd_loss(x, 1.0, 1.0, 0.0)[0], [f], [0])
+        with card_signs_on_cpu() as loss_flips:
+            card_vs_cpu("rank1_svd_loss [64, 128, 7], lambda1 = 0.1, the CPU at the card's U1 signs",
+                        lambda x: rank1_svd_loss(x, 1.0, 1.0, 0.1)[0], [f], [0])
+        s.check(loss_flips == [int(flipped.sum())],
+                f"the same {loss_flips} cases re-signed as counted above")
         card_vs_cpu('rank1_svd_loss [64, 128, 7], impl="gram"',
                     lambda x: rank1_svd_loss(x, 1.0, 1.0, 0.1, impl="gram")[0], [f], [0])
         unit = f / np.linalg.norm(f, axis=1, keepdims=True)
@@ -2153,6 +2210,12 @@ def main() -> int:
         s.check(on.keys() == off.keys() and r_err <= 1e-6,
                 f"remat on vs off on the card: worst relative L2 {r_err:.2e} <= 1e-6 over {len(off)} "
                 f"gradients ({equal} bit-equal; two runs without remat differ by {n_err:.2e})")
+        peaks = remat_peaks(f"flagship, a {FLAG_WINDOW}-case window", mc, ec, card.state_dict(),
+                            window, "cpu")
+        s.check(peaks["segments"] <= peaks["whole forward"] and peaks["segments"] <= peaks["off"],
+                f"flagship remat (each CLAM branch a segment): peak {peaks['segments']:.1f} MiB, "
+                f"not above the whole forward's {peaks['whole forward']:.1f} or off's "
+                f"{peaks['off']:.1f}")
         del card, host, res, stack, grads
         no_kernel_launches("phase 18")
 

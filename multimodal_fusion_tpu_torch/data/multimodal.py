@@ -7,9 +7,12 @@ Reference semantics: ``downstream_survival/datasets/multimodal_dataset.py:31-523
 - deterministic label map (sorted unique labels -> int);
 - special ``hypergraph=`` channels read the ``hypergraph/`` h5 group with
   fallback to raw features (:343-386);
-- an optional alignment function applied at load time, producing
-  ``aligned_<channel>`` entries (:396-425);
 - per-file locks + retry handled by the ``io.h5io`` layer.
+
+The JAX dataset's load-time alignment (``align_channels``,
+``alignment_apply_fn``) comes with the alignment models (ROADMAP Queue 1
+item 14), its only caller.  Its ``preload_all`` is not ported: no CLI of
+either package sets it.
 
 The CSV is read with the stdlib ``csv`` module and ``h5py`` is imported
 inside the functions that open files (the port runs on machines without
@@ -24,7 +27,7 @@ from __future__ import annotations
 import csv
 import os
 from pathlib import Path
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -55,27 +58,13 @@ class MultimodalDataset:
         csv_path: str | Path,
         data_root_dir: str | Path,
         channels: List[str],
-        align_channels: Optional[Dict[str, str]] = None,
-        alignment_apply_fn: Optional[Callable[[Dict[str, np.ndarray]], Dict[str, np.ndarray]]] = None,
         print_info: bool = False,
-        preload_all: bool = False,
     ):
-        """``align_channels`` maps a channel to its alignment modality;
-        ``alignment_apply_fn`` maps {modality: [N, D]} to the aligned dict,
-        whose entries each case carries as ``aligned_<channel>``.
-        ``preload_all`` reads every case once at construction and serves
-        ``get_case`` from memory."""
         if not channels:
             raise ValueError("channels must not be empty")
         self.data_root_dir = Path(data_root_dir)
         self.channels = list(channels)
-        self.align_channels = dict(align_channels or {})
-        self.alignment_apply_fn = alignment_apply_fn
         self.print_info = print_info
-
-        missing_align = [c for c in self.align_channels if c not in self.channels]
-        if missing_align:
-            raise ValueError(f"align_channels keys not in channels: {missing_align}")
 
         with open(csv_path, newline="") as f:
             reader = csv.DictReader(f)
@@ -108,11 +97,6 @@ class MultimodalDataset:
 
         self._filter_missing()
         self._build_label_mapping()
-
-        self._preloaded: Dict[str, Tuple[RawCase, int]] = {}
-        if preload_all:
-            for cid in self.case_ids:
-                self._preloaded[cid] = self._load_case(cid)
 
     # ------------------------------------------------------------------
 
@@ -187,7 +171,7 @@ class MultimodalDataset:
             return np.asarray(data, np.int64).reshape(-1)
         return _standardize(data)
 
-    def _load_case(self, case_id: str) -> Tuple[RawCase, int]:
+    def get_case(self, case_id: str) -> Tuple[RawCase, int]:
         path = self.case_to_file[case_id]
 
         # the hot path retries the whole read unit, like the reference
@@ -203,21 +187,7 @@ class MultimodalDataset:
                     case[ch] = _standardize(np.asarray(f[h5_path_for_channel(ch)]))
             return case
 
-        out = read_h5_retrying(path, read)
-        if self.alignment_apply_fn is not None and self.align_channels:
-            align_in = {mod: out[ch] for ch, mod in self.align_channels.items() if ch in out}
-            if align_in:
-                aligned = self.alignment_apply_fn(align_in)
-                mod_to_ch = {m: c for c, m in self.align_channels.items()}
-                for mod, feat in aligned.items():
-                    if mod in mod_to_ch:
-                        out[f"aligned_{mod_to_ch[mod]}"] = np.asarray(feat, np.float32)
-        return out, self.label_to_int[self.case_to_label[case_id]]
-
-    def get_case(self, case_id: str) -> Tuple[RawCase, int]:
-        if case_id in self._preloaded:
-            return self._preloaded[case_id]
-        return self._load_case(case_id)
+        return read_h5_retrying(path, read), self.label_to_int[self.case_to_label[case_id]]
 
     def __getitem__(self, idx: int) -> Tuple[RawCase, int]:
         return self.get_case(self.case_ids[idx])

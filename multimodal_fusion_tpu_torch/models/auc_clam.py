@@ -37,8 +37,17 @@ class AUCCLAM(CLAM):
     def has_group_loss(self) -> bool:
         return True
 
-    def group_loss_fn(self, window_results: Result) -> torch.Tensor:
+    def _aucm(self, window_results: Result, a, b, alpha) -> torch.Tensor:
         logits = window_results["logits"]  # [G, C]
         margins = logits[:, 1] - logits[:, 0]
-        return aucm_loss(margins, window_results["label"], self.auc_a, self.auc_b,
-                         self.auc_alpha, self.auc_margin)
+        return aucm_loss(margins, window_results["label"], a, b, alpha, self.auc_margin)
+
+    def group_loss_fn(self, window_results: Result) -> torch.Tensor:
+        return self._aucm(window_results, self.auc_a, self.auc_b, self.auc_alpha)
+
+    def frozen_group_loss_fn(self):
+        """``group_loss_fn`` bound to detached copies of a, b and alpha as
+        they are now: the validation group loss reads the values the model
+        was built with, as the JAX trainer's does."""
+        a, b, alpha = (p.detach().clone() for p in (self.auc_a, self.auc_b, self.auc_alpha))
+        return lambda window_results: self._aucm(window_results, a, b, alpha)

@@ -16,14 +16,21 @@ read them; MFMF ignores them) and returns the result dict with at least
 entry that is [1, ...] per case in the JAX package is [G, ...] here (a
 scalar loss is [G]).  ``loss_fn(logits, labels, result)`` returns the
 per-case losses [G] (each the JAX model's loss of that case alone).
+
+A model marks the parts of its forward that are independent of each other
+or run in sequence (a CLAM branch, an MFMF attention block) with
+:meth:`BaseModel.segment`; under the trainer's ``remat`` each segment is
+checkpointed on its own, so the backward pass holds the recomputed
+activations of one segment at a time.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from multimodal_fusion_tpu_torch.config import ModelConfig
 from multimodal_fusion_tpu_torch.ops.losses import cross_entropy
@@ -92,9 +99,37 @@ def process_case(case: Case, channels_used_in_model) -> Tuple[Dict[str, torch.Te
     return inputs, masks
 
 
+def checkpoint_replaying(fn: Callable, args, kwargs, generator: Optional[torch.Generator]):
+    """``fn(*args, generator=generator, **kwargs)`` under
+    ``torch.utils.checkpoint``.  The checkpoint restores the global RNG
+    states, not an explicit generator, so the generator's state before the
+    call is replayed for the recompute and the state after it put back (the
+    recompute may stop early): the recompute draws the forward's dropout
+    masks."""
+    start = None if generator is None else generator.get_state()
+    recompute = False
+
+    def run(*a):
+        nonlocal recompute
+        if not recompute or generator is None:
+            recompute = True
+            return fn(*a, generator=generator, **kwargs)
+        after = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*a, generator=generator, **kwargs)
+        finally:
+            generator.set_state(after)
+
+    return checkpoint(run, *args, use_reentrant=False)
+
+
 class BaseModel(nn.Module):
     # True only for models that implement inference-time modality dropout
     supports_drop_prob = False
+    # set by the trainer from ExperimentConfig.remat: training forwards
+    # checkpoint each segment (``segment``)
+    remat = False
 
     def __init__(self, config: ModelConfig):
         super().__init__()
@@ -104,6 +139,17 @@ class BaseModel(nn.Module):
         self.n_classes = config.n_classes
         if config.base_loss_fn not in (None, "ce"):
             raise ValueError(f"Unsupported base loss: {config.base_loss_fn}")
+
+    def segment(self, fn: Callable, *args, generator: Optional[torch.Generator] = None,
+                train: bool = False, **kwargs):
+        """``fn(*args, generator=generator, train=train, **kwargs)``; under
+        ``remat`` in a training forward that records gradients, its
+        activations are dropped after the forward and recomputed, with the
+        same draws, when the backward pass reaches it."""
+        kwargs["train"] = train
+        if self.remat and train and torch.is_grad_enabled():
+            return checkpoint_replaying(fn, args, kwargs, generator)
+        return fn(*args, generator=generator, **kwargs)
 
     def base_loss(self, logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         """Per-case cross entropy [G] of logits [G, C]."""

@@ -148,8 +148,8 @@ class ClamMLP(BaseModel):
         aux: Result = {}
         for ch in self.used_modality:
             if ch in CLAM_CHANNELS:
-                res = self.clam_forward(ch, inputs[ch], in_masks.get(ch), label,
-                                        generator=generator, train=train)
+                res = self.segment(self.clam_forward, ch, inputs[ch], in_masks.get(ch), label,
+                                   generator=generator, train=train)
                 for rk, rv in res.items():
                     aux[f"{ch}_{rk}"] = rv
                 features[ch] = res["features"]

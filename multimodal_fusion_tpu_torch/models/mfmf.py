@@ -174,7 +174,8 @@ class MFMF(BaseModel):
         modality, modality_mask = self._collect_modalities(case)
         result_mask = None
         for blk in self.fusion_blocks_sequence:
-            out = self.attention_blocks[f"{blk['q']}:{blk['kv']}"](
+            out = self.segment(
+                self.attention_blocks[f"{blk['q']}:{blk['kv']}"],
                 modality[blk["q"]], modality[blk["kv"]], modality_mask.get(blk["kv"]),
                 generator=generator, train=train,
             )

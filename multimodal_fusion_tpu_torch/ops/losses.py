@@ -150,6 +150,13 @@ def _rank1_factors_gram(feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor
     return S, U1 * sign.detach()
 
 
+def _svd_rank1(feats: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(S [B, M], U1 [B, D]) of ``torch.linalg.svd`` of feats [B, D, M],
+    with the backend's signs of U1."""
+    U, S, _ = torch.linalg.svd(feats, full_matrices=False)  # U [B, D, M]
+    return S, U[:, :, 0]
+
+
 def rank1_svd_loss(
     features: torch.Tensor,
     tau1: float,
@@ -180,8 +187,7 @@ def rank1_svd_loss(
     if impl == "gram" and features.shape[2] <= features.shape[1]:
         S, U1 = _rank1_factors_gram(feats)  # S [B, M], U1 [B, D]
     else:
-        U, S, _ = torch.linalg.svd(feats, full_matrices=False)  # U [B, D, M]
-        U1 = U[:, :, 0]
+        S, U1 = _svd_rank1(feats)
     svd_values = S.mean(dim=0)
 
     B = U1.shape[0]

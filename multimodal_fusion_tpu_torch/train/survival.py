@@ -34,11 +34,14 @@ Execution options (``ExperimentConfig``):
   the JAX package's ``_make_eval_step`` does: a bfloat16 copy of the
   parameters and of the window's floating inputs, outputs cast back to
   float32 for the metrics.  Training stays float32.
-- ``remat``: the window's forward runs under ``torch.utils.checkpoint``
-  and is recomputed in the backward pass; the generator's state is saved
-  before the forward and replayed for the recompute, so dropout and the
-  random partial loss draw the same numbers and the gradients equal those
-  without remat.
+- ``remat``: each segment of the training forward (a CLAM branch, an
+  MFMF attention block: ``BaseModel.segment``) runs under
+  ``torch.utils.checkpoint`` and is recomputed when the backward pass
+  reaches it, so the backward holds one segment's activations at a time.
+  The generator's state is replayed for each recompute, so dropout draws
+  the same numbers and the gradients equal those without remat.  A model
+  with one bag branch (CLAM, AUC-CLAM) marks no segment: checkpointing its
+  whole forward would lower no peak.
 - ``mesh_shape`` is not ported yet and raises ``NotImplementedError``
   naming ROADMAP Queue 1 item 16.
 
@@ -131,43 +134,14 @@ def _tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
-def _group_eval_model(model):
-    """A copy of a ``stashes_group_logits`` model as it was built, whose
-    ``group_loss_fn`` the validation loss adds; None for other models.  The
-    copy keeps the initial AUCM a/b/alpha, as the JAX trainer's does (its
-    group-loss closure binds a copy of the model state taken before the
-    train steps donate the live one)."""
+def _group_eval(model):
+    """The validation group loss of a ``stashes_group_logits`` model, bound
+    to its group-loss parameters as they are now (before training), as the
+    JAX trainer binds a copy of the model state taken before the train
+    steps donate the live one; None for other models."""
     if not getattr(model, "stashes_group_logits", False):
         return None
-    return copy.deepcopy(model)
-
-
-def _remat(forward, generator: Optional[torch.Generator]):
-    """``forward()`` under ``torch.utils.checkpoint``: its activations are
-    recomputed in the backward pass instead of kept.  The checkpoint
-    restores the global RNG states, not an explicit generator, so the
-    generator's state before the forward is replayed for the recompute and
-    the state after it put back (the recompute may stop early): the
-    recompute draws the dropout masks and random-loss draws of the
-    forward."""
-    from torch.utils.checkpoint import checkpoint
-
-    start = None if generator is None else generator.get_state()
-    recompute = False
-
-    def run():
-        nonlocal recompute
-        if not recompute or generator is None:
-            recompute = True
-            return forward()
-        after = generator.get_state()
-        generator.set_state(start)
-        try:
-            return forward()
-        finally:
-            generator.set_state(after)
-
-    return checkpoint(run, use_reentrant=False)
+    return model.frozen_group_loss_fn()
 
 
 class SurvivalTrainer:
@@ -344,11 +318,9 @@ class SurvivalTrainer:
         labels = window["label"]
         case = {"channels": window["channels"], "masks": window["masks"]}
 
-        def forward():
-            res = model(case, labels, generator=generator, train=True)
-            return res, model.loss_fn(res["logits"], labels, res)
-
-        res, losses = _remat(forward, generator) if self.remat else forward()
+        model.remat = self.remat
+        res = model(case, labels, generator=generator, train=True)
+        losses = model.loss_fn(res["logits"], labels, res)
         total = losses.sum()
         if model.has_group_loss():
             group = dict(res, label=labels)
@@ -394,12 +366,13 @@ class SurvivalTrainer:
 
     def _evaluate(self, dataset, indices, model, tables=None, row_of=None,
                   drop_prob: Optional[float] = None, seed: int = 0,
-                  group_model=None) -> Dict[str, Any]:
+                  group_eval=None) -> Dict[str, Any]:
         """Evaluate the cases at ``indices`` in windows of min(batch_size,
         16); results stay on the device until one host sync at the end.
         ``drop_prob`` draws from a generator on the run's device seeded with
-        ``seed``.  ``group_model`` (models with ``stashes_group_logits``)
-        adds its group loss over all the evaluated cases to the loss."""
+        ``seed``.  ``group_eval`` (models with ``stashes_group_logits``: their
+        ``frozen_group_loss_fn``) adds its group loss over all the evaluated
+        cases to the loss."""
         G = min(self.exp.batch_size, 16)
         model = self._compute_model(model)
         generator = (None if drop_prob is None
@@ -421,19 +394,19 @@ class SurvivalTrainer:
                 labels.append(np.asarray(window["label"]))
                 patient_ids.extend(chunk)
                 outs.append(self._eval_window(model, self._to_device(window), generator, drop_prob))
-        return self._eval_summary(dataset, outs, labels, patient_ids, group_model)
+        return self._eval_summary(dataset, outs, labels, patient_ids, group_eval)
 
     def _eval_summary(self, dataset, outs, all_labels, patient_ids,
-                      group_model=None) -> Dict[str, Any]:
+                      group_eval=None) -> Dict[str, Any]:
         group_loss = None
-        if group_model is not None and outs:
+        if group_eval is not None and outs:
             # one group loss over the whole evaluated set, added to the
             # case mean like the reference's batch_log['loss'] += group_loss
             with torch.no_grad():
                 logits = torch.cat([o[0] for o in outs])
                 label = torch.as_tensor(np.concatenate(all_labels), dtype=torch.int64,
                                         device=logits.device)
-                group_loss = float(group_model.group_loss_fn({"logits": logits, "label": label}))
+                group_loss = float(group_eval({"logits": logits, "label": label}))
         if outs:
             logits, probs, preds, losses, risk = (
                 torch.cat([o[j].reshape(o[j].shape[0], -1) for o in outs]).cpu().numpy()
@@ -472,7 +445,7 @@ class SurvivalTrainer:
         save_fold_split(split, dataset.case_ids, self.log_dir / f"splits_{fold_idx}.csv")
 
         model = self._build_model(fold_idx)
-        group_model = _group_eval_model(model)
+        group_eval = _group_eval(model)
         optimizer = make_optimizer(exp.optimizer, exp.weight_decay, model.parameters(), exp.lr)
         tables = row_of = None
         if exp.get("device_data", "auto"):  # "auto" and True both try; False skips
@@ -519,7 +492,7 @@ class SurvivalTrainer:
             losses_np = torch.stack(epoch_losses).cpu().numpy() if epoch_losses else np.asarray([])
 
             val = self._evaluate(dataset, split.val_idx, model, tables, row_of,
-                                 group_model=group_model)
+                                 group_eval=group_eval)
             metric = val[exp.monitor_metric]
             schedule.plateau_step(val["loss"])
             improved = stopper.step(epoch, metric)
@@ -549,9 +522,9 @@ class SurvivalTrainer:
             # reference without the flag: persist and evaluate the final weights
             save_model(ckpt_path, model)
 
-        val = self._evaluate(dataset, split.val_idx, model, tables, row_of, group_model=group_model)
+        val = self._evaluate(dataset, split.val_idx, model, tables, row_of, group_eval=group_eval)
         test = self._evaluate(dataset, split.test_idx, model, tables, row_of,
-                              group_model=group_model)
+                              group_eval=group_eval)
 
         # per-patient probability dump (reference trainer.py:1013)
         patient_results = {
@@ -594,10 +567,10 @@ class SurvivalTrainer:
         if drop_prob is not None and not getattr(model, "supports_drop_prob", False):
             raise ValueError(f"{type(model).__name__} does not support inference-time modality "
                              "dropout (drop_prob); use a *_detach variant")
-        group_model = _group_eval_model(model)
+        group_eval = _group_eval(model)
         load_model(Path(checkpoint_path or self.log_dir / f"s_{fold_idx}_checkpoint.npz"), model)
         res = self._evaluate(dataset, split.test_idx, model, drop_prob=drop_prob, seed=seed,
-                             group_model=group_model)
+                             group_eval=group_eval)
         return {k: res[k] for k in ("auc", "acc", "loss", "patient_ids")} | {
             "probs": res["probs"].tolist(),
             "labels": res["labels"].tolist(),

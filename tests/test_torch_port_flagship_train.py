@@ -171,6 +171,39 @@ def test_remat_gives_bit_equal_gradients(data):
         assert torch.equal(g, grads[True][name]), name
 
 
+def test_remat_holds_no_branch_activations(data):
+    """What the forward leaves for the backward pass, remat off and on:
+    with it on, each CLAM branch is a checkpointed segment, so no
+    [G, N, hidden] activation of a branch is held, and the held activation
+    bytes (the inputs and the parameters aside) fall below a third."""
+    root, csv_path, _ = data
+    _, tc, chans = _configs("svd_gate_random_clam", FLAGSHIP, dropout=0.25, enable_random_loss=True)
+    ds = MultimodalDataset(csv_path, root, chans)
+    tr = SurvivalTrainer(tc, root / "held", device="cpu")
+    window = tr._to_device(next(tr._windows(ds, list(range(8)), 8))[1])
+    hidden = tconfig.model_size_dims(16, "8*4")[1]
+    held = {}
+    for remat in (False, True):
+        model = ModelFactory.create_model(tc.model_config, seed=3, device="cpu")
+        model.remat = remat
+        skip = {t.untyped_storage().data_ptr() for t in [*model.parameters(),
+                *window["channels"].values(), *window["masks"].values()]}
+        saved = {}
+
+        def pack(t):
+            if t.untyped_storage().data_ptr() not in skip:
+                saved[t.untyped_storage().data_ptr()] = (tuple(t.shape), t.untyped_storage().nbytes())
+            return t
+
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            model({"channels": window["channels"], "masks": window["masks"]}, window["label"],
+                  generator=torch.Generator().manual_seed(1), train=True)
+        branch = [shape for shape, _ in saved.values() if len(shape) == 3 and shape[-1] == hidden]
+        held[remat] = (sum(n for _, n in saved.values()), branch)
+    assert held[False][1] and not held[True][1]
+    assert held[True][0] < held[False][0] / 3, held
+
+
 def _separable_dataset(root, n_cases=32, d=24):
     """Class-1 bags shifted by +1.2 per dim: linearly separable at bag
     level (``tests/test_trained_parity.py``'s fixture)."""

@@ -1,6 +1,5 @@
-"""The port's training CLI (``cli/main_survival.py``), its dataset options
-(``preload_all``, load-time alignment) and ``utils/seeding.py`` against the
-JAX package's on the CPU.
+"""The port's training CLI (``cli/main_survival.py``) and
+``utils/seeding.py`` against the JAX package's on the CPU.
 
 The CLI test runs both CLIs with the same flags on one HDF5 fixture (the
 JAX package's ``make_synthetic_dataset``): the port writes the JAX CLI's
@@ -20,7 +19,6 @@ import pytest
 import torch
 
 from multimodal_fusion_tpu.cli import main_survival as jcli
-from multimodal_fusion_tpu.data.multimodal import MultimodalDataset as JaxDataset
 from multimodal_fusion_tpu.io.fixtures import make_synthetic_dataset
 from multimodal_fusion_tpu.utils.seeding import seed_everything as jax_seed_everything
 from multimodal_fusion_tpu_torch.channels import parse_channels
@@ -117,31 +115,46 @@ def test_cli_flags_and_configs_match_jax(fixture, tmp_path):
     assert (out / "summary.csv").exists()
 
 
-def test_dataset_preload_and_alignment_match_jax(fixture):
+class _InMemory:
+    """The dataset interface ``cli.run`` reads (``case_ids``, ``labels``,
+    ``case_to_patient``, ``get_case``, ``has_survival_time``) over cases
+    held in memory, as a driver without h5py holds them."""
+
+    has_survival_time = False
+
+    def __init__(self, ds):
+        self.case_ids = list(ds.case_ids)
+        self.labels = np.asarray(ds.labels)
+        self.case_to_patient = dict(ds.case_to_patient)
+        self._cases = {c: ds.get_case(c) for c in self.case_ids}
+
+    def __len__(self):
+        return len(self.case_ids)
+
+    def get_case(self, case_id):
+        return self._cases[case_id]
+
+
+def test_run_trains_any_object_with_the_dataset_interface(fixture, tmp_path):
+    """``cli.run`` (everything after the dataset is built) over the cases
+    held in memory writes what ``main`` writes from the HDF5 files: the
+    same splits, per-epoch histories and summary."""
     root, csv_path = fixture
-    chans = ["wsi=features", "tma=cd3=features", "clinical=val"]
-    align = {"tma=cd3=features": "tma", "clinical=val": "clin"}
-
-    def apply(feats):  # {modality: [N, D]} -> aligned, plus one modality it ignores
-        out = {m: np.tanh(x) * 2.0 for m, x in feats.items()}
-        out["other"] = np.zeros((1, 1), np.float32)
-        return out
-
-    want = JaxDataset(csv_path, root, chans, align_channels=align, alignment_apply_fn=apply,
-                      preload_all=True)
-    got = MultimodalDataset(csv_path, root, chans, align_channels=align, alignment_apply_fn=apply,
-                            preload_all=True)
-    assert got.case_ids == want.case_ids and len(got._preloaded) == len(got)
-    for cid in got.case_ids:
-        (raw, label), (jraw, jlabel) = got.get_case(cid), want.get_case(cid)
-        assert label == jlabel and set(raw) == set(jraw)
-        assert {"aligned_tma=cd3=features", "aligned_clinical=val"} <= set(raw)
-        for ch in raw:
-            assert raw[ch].dtype == jraw[ch].dtype
-            np.testing.assert_array_equal(raw[ch], jraw[ch])
-    assert got.get_case(got.case_ids[0]) is got.get_case(got.case_ids[0])  # served from memory
-    with pytest.raises(ValueError, match="align_channels keys not in channels"):
-        MultimodalDataset(csv_path, root, chans, align_channels={"blood=val": "b"})
+    data = ["--csv_path", str(csv_path), "--data_root_dir", str(root), "--device", "cpu"]
+    args = cli.parse_args(FLAGS + data + ["--results_dir", str(tmp_path / "mem")])
+    table = _InMemory(MultimodalDataset(csv_path, root, args.target_channels))
+    seed_everything(args.seed)
+    mem = cli.run(args, table)
+    files = cli.main(FLAGS + data + ["--results_dir", str(tmp_path / "h5")])
+    for name in ("splits_0.csv", "splits_1.csv", "summary.csv"):
+        assert (mem / name).read_text() == (files / name).read_text(), name
+    for fold in (0, 1):  # the histories but their wall-clock column
+        got, want = (_read_csv(d / f"fold_{fold}_epochs.csv") for d in (mem, files))
+        assert got[0] == want[0] and len(got) == len(want) == 2
+        timed = [i for i, h in enumerate(got[0]) if "time" in h]
+        assert len(timed) == 1
+        assert [r[: timed[0]] + r[timed[0] + 1:] for r in got] == \
+            [r[: timed[0]] + r[timed[0] + 1:] for r in want]
 
 
 def test_seed_everything_seeds_like_jax():
