@@ -1990,14 +1990,19 @@ def main() -> int:
         host.load_state_dict({k: t.cpu() for k, t in model.state_dict().items()})
         return host
 
-    def grad_errors(card, host):
+    # biases whose gradient is 0 in exact arithmetic: a binary CLAM's
+    # ``attention_c`` and CustOmics' attention-pool gate shift every score of
+    # a bag by one constant, which the softmax (and the top-k selection)
+    # removes; the Linear before CustOmics' masked batch norm adds one
+    # constant per feature over the nodes, which the normalisation removes
+    exact_zero_biases = ("attention_c", "gate_nn.2", "hypergraph_net.first")
+
+    def grad_errors(card, host, zero_biases=()):
         """Relative L2 error of each parameter's gradient on the card against
         the CPU's; a tensor with a gradient on one side only counts inf.  A
-        binary CLAM's ``attention_c`` bias shifts every attention score of a
-        bag by one constant, which the softmax and the top-k selection
-        remove: its gradient is 0 in exact arithmetic and rounding noise on
-        both sides, so it is held against the norm of its layer's weight
-        gradient instead of its own."""
+        bias of ``exact_zero_biases`` (or ``zero_biases``) has rounding noise
+        for a gradient on both sides, so it is held against the norm of its
+        layer's weight gradient instead of its own."""
         cpu = dict(host.named_parameters())
         errs = {}
         for n, p in card.named_parameters():
@@ -2007,8 +2012,10 @@ def main() -> int:
             if g is None or want is None:
                 errs[n] = float("inf")
                 continue
-            scale = cpu[n.replace("attention_c.bias", "attention_c.weight")].grad.norm()
-            errs[n] = float((g.cpu() - want).norm() / scale.clamp_min(1e-30))
+            ref = n
+            for layer in exact_zero_biases + tuple(zero_biases):
+                ref = ref.replace(f"{layer}.bias", f"{layer}.weight")
+            errs[n] = float((g.cpu() - want).norm() / cpu[ref].grad.norm().clamp_min(1e-30))
         return errs
 
     def card_vs_cpu(label, fn, arrays, grad_idx, bar_value=1e-5, bar_grad=1e-4):
@@ -2036,22 +2043,30 @@ def main() -> int:
         return S, U[:, :, 0]
 
     @contextlib.contextmanager
-    def card_signs_on_cpu():
+    def card_signs_on_cpu(reference=lambda feats: feats.is_cuda, keep=None):
         """``rank1_svd_loss``'s SVD (``ops.losses._svd_rank1``) wrapped for a
         card run followed by a CPU run of the same loss: the card's call
         records its U1, and the CPU's call negates each case whose U1
         points against the card's.  The sign is a constant factor per
         case, so the CPU computes the value and the gradient of the loss
-        at the card's signs.  Yields the CPU calls' flip counts."""
+        at the card's signs.  Yields the CPU calls' flip counts.
+        ``reference`` picks the recording run's calls by their input;
+        ``keep`` (a list), if given, receives the recorded U1s in order.
+        Inside, every other call re-signs to the next recorded U1: with
+        ``reference`` never true and ``keep`` recorded before, runs take
+        that earlier run's signs."""
         plain = losses_mod._svd_rank1
-        card_u, flips = [], []
+        card_u, flips = list(keep or []), []
 
         def svd(feats):
             S, U1 = plain(feats)
-            if feats.is_cuda:
-                card_u.append(U1.detach().cpu())
+            if reference(feats):
+                card_u.append(U1.detach().cpu().double())
+                if keep is not None:
+                    keep.append(card_u[-1])
                 return S, U1
-            sign = torch.where((U1.detach() * card_u.pop(0)).sum(1) < 0, -1.0, 1.0)
+            ref = card_u.pop(0).to(U1.device)
+            sign = torch.where((U1.detach().double() * ref).sum(1) < 0, -1.0, 1.0).to(U1.dtype)
             flips.append(int((sign < 0).sum()))
             return S, U1 * sign[:, None]
 
@@ -2450,6 +2465,427 @@ def main() -> int:
             s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
         no_kernel_launches("phase 20")
 
+    # ---------------------------------------------------------------- 21
+    zoo = {}  # directory, read by phases 22-23
+    # ps3.sh's seven channels, each tabular group with its mask
+    zoo_chans = parse_channels(["wsi", "tma"] + [f"{g}_mask" for g in TABULAR_DIMS])
+    tabular_chans = parse_channels([f"{g}_mask" for g in TABULAR_DIMS])
+    hg_model_chans = ["hypergraph=wsi_super_features", "hypergraph=tma_features"] + tabular_chans
+    hg_targets = hg_model_chans[:2] + ["hypergraph=edge_index", "hypergraph=edge_weights"] + tabular_chans
+
+    def zoo_config(key, chans):
+        """ps3.sh's width (1024-d inputs, model_size 64*32, output_dim 128,
+        dropout 0.25, base_weight 0.9, subtyping, inst_number 8) with the
+        flagship script's SVD settings; cust_omics at the JAX default
+        hypergraph_hidden_dims [256, 256] over 1024-d nodes."""
+        mc = ModelConfig(model_type=key, n_classes=2, input_dim=DIM, model_size="64*32",
+                         dropout=0.25, output_dim=FLAG_DIM, base_weight=0.9, subtyping=True,
+                         inst_number=8, alignment_layer_num=2, lambda1=0.1, lambda2=0.1,
+                         tau1=1.0, tau2=1.0, channels_used_in_model=list(chans),
+                         channel_input_dims={f"{g}=val": d for g, d in TABULAR_DIMS.items()})
+        if key == "cust_omics":
+            mc.extra.update(hypergraph_hidden_dims=[256, 256], hypergraph_node_dim=DIM)
+        return mc
+
+    def cpu_copy(window):
+        return {k: {c: t.cpu() for c, t in v.items()} if isinstance(v, dict) else v.cpu()
+                for k, v in window.items()}
+
+    def synthetic_hypergraph(rng, raw):
+        """A build's hypergraph arrays for one of phase 12's cases, drawn
+        (phase 21 launches no kernel): 100 super-patches from the WSI bag,
+        the case's TMA rows as the TMA nodes, 5 (node, hyperedge) pairs a
+        node with weights in [0, 1]."""
+        tma = np.concatenate([raw[f"tma={mk}=features"] for mk in TMA_MARKERS])
+        n = NUM_SUPER + tma.shape[0]
+        src = np.repeat(np.arange(n), 5)
+        return {"hypergraph=wsi_super_features": raw["wsi=features"][:NUM_SUPER],
+                "hypergraph=tma_features": tma,
+                "hypergraph=edge_index": np.stack([src, rng.integers(0, n, src.size)]).astype(np.int64),
+                "hypergraph=edge_weights": rng.uniform(0, 1, src.size).astype(np.float32)}
+
+    def zoo_check(label, mc, raws_w, labels_w, svd=False, zero_biases=(), f64_eval=False,
+                  f64_train=False):
+        """One window of ``mc``'s model on the card against a CPU run of the
+        port from the same weights and window: eval logits within 1e-4 and
+        probabilities within 1e-5; one training window (the trainer's step
+        with a zero learning rate, the draws from one CPU generator on both
+        sides) with every gradient within 1e-4 relative L2 and the mean
+        case loss within 1e-5.  ``svd``: the CPU run takes the card's U1
+        signs (``card_signs_on_cpu``), so loss2's gradient is held at
+        lambda1 = 0.1.  ``zero_biases``: more biases whose gradient is 0 in
+        exact arithmetic (see ``exact_zero_biases``).
+
+        ``f64_eval`` / ``f64_train``: where float32 rounding alone exceeds
+        the bar, the float32 comparison is printed as a reading beside the
+        card's own float32 error against its float64 run, and both sides
+        run again in float64, which is held to the same bars."""
+        ec = ExperimentConfig(batch_size=len(labels_w), target_channels=list(mc.channels_used_in_model))
+        tr = SurvivalTrainer(Configs(ec, mc), zoo["dir"] / label, device=dev)
+        cpu_tr = SurvivalTrainer(Configs(ec, mc), zoo["dir"] / f"{label}_cpu", device="cpu")
+        window32 = tr._to_device(make_window(raws_w, labels_w))
+        card = ModelFactory.create_model(mc, seed=0, device=dev)
+        host = host_copy(card, mc)
+
+        def cast(window, dtype):
+            return dict(window, channels={k: v.to(dtype) for k, v in window["channels"].items()})
+
+        def evaluate(dtype):
+            window = cast(window32, dtype)
+            cpu_window = cpu_copy(window)
+            with torch.no_grad():
+                got = card.to(dtype)({"channels": window["channels"], "masks": window["masks"]},
+                                     window["label"])
+                want = host.to(dtype)({"channels": cpu_window["channels"], "masks": cpu_window["masks"]},
+                                      cpu_window["label"])
+            return got["logits"].cpu(), got["probabilities"].cpu(), want["logits"], want["probabilities"]
+
+        def train(dtype, signs):
+            window = cast(window32, dtype)
+            with signs as flips:
+                loss_card = float(tr._train_step(card.to(dtype), torch.optim.SGD(card.parameters(), lr=0.0),
+                                                 window, torch.Generator().manual_seed(0)))
+                t0 = time.perf_counter()
+                loss_cpu = float(cpu_tr._train_step(host.to(dtype), torch.optim.SGD(host.parameters(), lr=0.0),
+                                                    cpu_copy(window), torch.Generator().manual_seed(0)))
+            errs = grad_errors(card, host, zero_biases)
+            worst = max(errs, key=errs.get)
+            return errs[worst], worst, len(errs), loss_card, abs(loss_card - loss_cpu) / abs(loss_cpu), \
+                sum(flips), time.perf_counter() - t0
+
+        gl, gp, wl, wp = evaluate(torch.float32)
+        l_err, p_err = float((gl - wl).abs().max()), float((gp - wp).abs().max())
+        line = (f"{label}: eval forward of {len(labels_w)} cases, card vs CPU: logits (max |logit| "
+                f"{float(wl.abs().max()):.2f}) max abs err {l_err:.2e} <= 1e-4, probabilities {p_err:.2e} "
+                "<= 1e-5")
+        if f64_eval:
+            gl64, gp64, wl64, wp64 = evaluate(torch.float64)
+            s.log(f"  reading, float32: {line}; float32 against float64, card "
+                  f"{float((gl - gl64).abs().max()):.2e}, CPU {float((wl - wl64).abs().max()):.2e}")
+            l_err, p_err = float((gl64 - wl64).abs().max()), float((gp64 - wp64).abs().max())
+            line = (f"{label}: eval forward in float64, card vs CPU: logits max abs err {l_err:.2e} "
+                    f"<= 1e-4, probabilities {p_err:.2e} <= 1e-5")
+        s.check(l_err <= 1e-4 and p_err <= 1e-5, line)
+
+        def no_signs():
+            return contextlib.nullcontext([])
+
+        kept = []  # the float32 card run's U1s
+        g_err, worst, n, loss, rel, flips, cpu_s = train(
+            torch.float32, card_signs_on_cpu(keep=kept) if svd else no_signs())
+        line = (f"{label}: training window, card vs CPU: worst gradient relative L2 {g_err:.2e} <= 1e-4 "
+                f"over {n} tensors ({worst}), mean case loss {loss:.6f} within {rel:.2e} <= 1e-5"
+                + (f"; the CPU re-signed to the card's U1 in {flips} SVD rows" if svd else "")
+                + f" (CPU step {cpu_s:.1f} s)")
+        if f64_train:
+            grads32 = {k: p.grad.detach().double() for k, p in card.named_parameters() if p.grad is not None}
+            # both float64 runs at the float32 card run's signs
+            g64, worst64, n64, loss64, rel64, flips64, _ = train(
+                torch.float64, card_signs_on_cpu(lambda feats: False, kept + kept) if svd
+                else no_signs())
+            own = {k: float((grads32[k] - p.grad).norm() / p.grad.norm().clamp_min(1e-30))
+                   for k, p in card.named_parameters() if k in grads32 and p.grad is not None
+                   and not any(f"{b}.bias" in k for b in exact_zero_biases + tuple(zero_biases))}
+            s.log(f"  reading, float32: {line}")
+            s.log(f"  reading: the card's float32 gradients against its float64 run"
+                  + (" at the same U1 signs" if svd else "")
+                  + f": worst relative L2 {max(own.values()):.2e} ({max(own, key=own.get)})")
+            g_err, rel = g64, rel64
+            line = (f"{label}: training window in float64, card vs CPU: worst gradient relative L2 "
+                    f"{g64:.2e} <= 1e-4 over {n64} tensors ({worst64}), mean case loss {loss64:.6f} within "
+                    f"{rel64:.2e} <= 1e-5" + (f"; both at the float32 card run's U1 signs ({flips64} rows "
+                                                        "re-signed)" if svd else ""))
+        s.check(g_err <= 1e-4 and rel <= 1e-5, line)
+        del card, host, window32
+
+    def zoo_phase():
+        """The rest of the zoo, card vs CPU: the 10 classifier keys on one
+        16-case window of phase 12's cases at ps3.sh's width (the gate MIL
+        family on its bag channels: its Linear(D, D) weightor takes no
+        16-d tabular group), cust_omics on the hypergraph channels and on
+        the raw-bag fallback, auto_connections' token matrix."""
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        zoo["dir"] = Path(tempfile.mkdtemp(prefix="zoo_"))
+        raws_w, labels_w = raws[:FLAG_WINDOW], labels[:FLAG_WINDOW]
+        gate_chans = parse_channels(["wsi", "tma"])
+        svd_clam_chans = ["wsi=features"] + [f"tma={mk}=features" for mk in TMA_MARKERS]
+        rng = np.random.default_rng(21)
+        hg_raws = [{**synthetic_hypergraph(rng, r), **{c: r[c] for c in tabular_chans}} for r in raws_w]
+        # float32 rounding alone exceeds the bars here (the readings print
+        # each side against its float64 run), so these comparisons are held
+        # in float64 on both sides: GateMIL's slots (h * conf * conf over a
+        # masked SUM of up to 4096 rows) give logits of |x| ~ 100;
+        # svd_clam's SVD backward divides by the gap between the top two
+        # squared singular values of 8 near-orthogonal aligned markers; the
+        # raw-bag fallback's incidence joins every node to every hyperedge,
+        # so the convolution is a mean over ~4000 nodes and the first
+        # layer's gradient a difference of near-equal sums through the
+        # batch norm
+        runs = [(k, zoo_config(k, gate_chans), raws_w, {}) for k in ("gate_shared_mil", "gate_mil_detach")]
+        runs += [(k, zoo_config(k, gate_chans), raws_w, {"f64_eval": True})
+                 for k in ("gate_mil", "gate_auc_mil")]
+        runs += [("svd_pool", zoo_config("svd_pool", zoo_chans), raws_w, {"svd": True})]
+        runs += [(k, zoo_config(k, zoo_chans), raws_w, {}) for k in ("mdlm", "ps3", "fbp")]
+        runs += [("cust_omics (hypergraph channels)", zoo_config("cust_omics", hg_model_chans),
+                  hg_raws, {}),
+                 # one transfer for all nodes: its bias is one constant per
+                 # feature, which the batch norm removes
+                 ("cust_omics (raw-bag fallback, 4 cases)",
+                  zoo_config("cust_omics", ["wsi=features"] + svd_clam_chans[1:] + tabular_chans),
+                  raws_w[:4], {"zero_biases": ("hypergraph_transfer",), "f64_train": True}),
+                 ("svd_clam", zoo_config("svd_clam", svd_clam_chans), raws_w,
+                  {"svd": True, "f64_train": True})]
+        for label, mc, rw, opts in runs:
+            try:
+                zoo_check(label, mc, rw, labels_w[:len(rw)], **opts)
+            except Exception:  # every key reports; one failing fails the phase
+                s.log(traceback.format_exc())
+                s.failures.append(f"phase 21, {label}: exception")
+        n_nodes = [r["hypergraph=edge_index"].max() + 1 for r in hg_raws]
+        s.log(f"  hypergraph window: {min(n_nodes)}-{max(n_nodes)} nodes a case; raw fallback: WSI "
+              f"bags of {min(len(r['wsi=features']) for r in raws_w[:4])}-"
+              f"{max(len(r['wsi=features']) for r in raws_w[:4])} patches + the TMA rows")
+
+        mc = zoo_config("auto_connections", zoo_chans)
+        tr = SurvivalTrainer(Configs(ExperimentConfig(batch_size=FLAG_WINDOW), mc), zoo["dir"] / "uc",
+                             device=dev)
+        window = tr._to_device(make_window(raws_w, labels_w))
+        cpu_window = cpu_copy(window)
+        card = ModelFactory.create_model(mc, seed=0, device=dev)
+        with torch.no_grad():
+            got = card({"channels": window["channels"], "masks": window["masks"]}, window["label"])
+            want = host_copy(card, mc)({"channels": cpu_window["channels"],
+                                        "masks": cpu_window["masks"]}, cpu_window["label"])
+        err = float((got.cpu() - want).abs().max())
+        s.check(tuple(got.shape) == (FLAG_WINDOW, 7 + 2 * 4, FLAG_DIM) and err <= 1e-4,
+                f"auto_connections: token matrix {tuple(got.shape)} (7 modality tokens + 2 x 4 views), "
+                f"card vs CPU max abs err {err:.2e} <= 1e-4")
+        no_kernel_launches("phase 21")
+
+    # ---------------------------------------------------------------- 22
+    hg_run = {}  # trainer, model, tables and timed window step, read by phase 23
+
+    class _H5Arrays:
+        """An in-memory stand-in for one HDF5 file of the dataset layout:
+        dataset paths (``hypergraph/edge_index``, ``clinical/val``) to numpy
+        arrays, answering ``in`` and ``[]`` as ``h5py.File`` does for the
+        paths ``data.multimodal.MultimodalDataset`` reads (the card's
+        machine has no h5py)."""
+
+        def __init__(self, arrays):
+            self._arrays = arrays
+
+        def __contains__(self, path):
+            return path in self._arrays
+
+        def __getitem__(self, path):
+            return self._arrays[path]
+
+    def cust_omics_phase():
+        """Main path: the build of each slide on the card (K1 once a slide),
+        its hypergraph arrays read by the port's MultimodalDataset, then
+        cust_omics trained by train_fold and scored by evaluate_fold and
+        predict."""
+        from multimodal_fusion_tpu_torch.data import multimodal as multimodal_mod
+        from multimodal_fusion_tpu_torch.data.batching import pad_case, window_bag_sizes
+
+        raws, labels = mfmf_raw_cases()  # labels and tabular groups
+        rng = np.random.default_rng(22)
+        t0 = time.perf_counter()
+        slides = [clustered_slide(rng, int(rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1)), N_TMA, DIM)
+                  for _ in range(MFMF_CASES)]
+        s.log(f"  {MFMF_CASES} clustered-blob slides drawn in {time.perf_counter() - t0:.1f} s (host)")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        built = [build.process_arrays(*sl, **params, save_similarity=False, device=dev)["arrays"]
+                 for sl in slides]
+        wall = time.perf_counter() - t0
+        add_main_path_counts()
+        n_patches = sum(len(sl[0]) for sl in slides)
+        s.timed(f"build: {MFMF_CASES} slides, {n_patches} patches ({MFMF_WSI[0]}-{MFMF_WSI[1]} a slide "
+                f"x {DIM}, {N_TMA} TMA rows) in {wall:.3f} s = {n_patches / wall:.1f} patches/s "
+                "(process_arrays one slide after another)")
+        s.check(similarity_rect.launches == MFMF_CASES and knn.launches == 0
+                and attention_fwd.launches == 0 and attention_bwd.launches == 0,
+                f"build -> cust_omics path: K1 launched once per slide built ({similarity_rect.launches}"
+                f" == {MFMF_CASES}), K2-K4 0 times")
+
+        # the dataset layout in memory: the build's hypergraph/ group beside
+        # the case's tabular groups, read through MultimodalDataset itself
+        td = Path(tempfile.mkdtemp(prefix="hg_"))
+        hg_run["dir"] = td
+        store, rows = {}, []
+        for i, (arrays, raw) in enumerate(zip(built, raws)):
+            path = td / f"case_{i:03d}.h5"
+            path.touch()  # the dataset keeps the cases whose file exists
+            store[str(path)] = _H5Arrays(
+                {f"hypergraph/{k}": v for k, v in arrays.items()}
+                | {c.replace("=", "/"): raw[c] for c in tabular_chans})
+            rows.append({"patient_id": str(1000 + i), "case_id": f"case_{i:03d}",
+                         "label": ("deceased", "living")[int(labels[i])],
+                         "h5_file_path": path.name})
+        csv_path = td / "dataset.csv"
+        write_csv(csv_path, rows)
+        original = multimodal_mod.read_h5_retrying
+        multimodal_mod.read_h5_retrying = lambda path, fn, *a, **k: fn(store[str(path)])
+        try:
+            cust_omics_main_path(csv_path, td, pad_case, window_bag_sizes)
+        finally:
+            multimodal_mod.read_h5_retrying = original
+        s.log("  the HDF5 files were NOT read: MultimodalDataset read the build's arrays through an "
+              "in-memory stand-in for h5py.File (the card's machine has no h5py)")
+
+    def cust_omics_main_path(csv_path, td, pad_case, window_bag_sizes):
+        from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
+
+        ds = MultimodalDataset(csv_path, td, hg_targets)
+        s.check(len(ds) == MFMF_CASES, f"MultimodalDataset over the built arrays: {len(ds)} cases")
+        mc = zoo_config("cust_omics", hg_model_chans)
+        ec = ExperimentConfig(exp_name="cust_omics", seed=5678, k_folds=10, max_epochs=2,
+                              batch_size=MFMF_BATCH, lr=1e-4, optimizer="adam", weight_decay=1e-5,
+                              scheduler="plateau",
+                              scheduler_params={"mode": "min", "patience": 15, "factor": 0.5},
+                              device_data=True, target_channels=list(hg_targets))
+        run_dir = td / "run"
+        tr = SurvivalTrainer(Configs(ec, mc), run_dir, device=dev)
+        Configs(ec, mc).save(run_dir / "configs_cust_omics.json")
+        split = create_k_fold_splits(ds.labels, ec.k_folds, ec.seed)[0]
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        summary = tr.train_fold(ds, split, 0)
+        wall = time.perf_counter() - t0
+        hist = summary["history"]
+        s.check(len(hist) == 2 and all(np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in hist),
+                "train_fold: 2 epochs, losses finite")
+        s.log("  history: " + "; ".join(f"epoch {h['epoch']}: train {h['train_loss']:.6f} val "
+                                        f"{h['val_loss']:.6f} auc {h['val_auc']:.4f}" for h in hist))
+        s.timed(f"train_fold, fold 0 of 10 ({len(split.train_idx)} train, {len(split.val_idx)} val, "
+                f"{len(split.test_idx)} test cases), 2 epochs and evaluation, its device tables "
+                f"included: {wall:.2f} s")
+
+        # the device tables' incidence and edge weights against data/batching.py on the CPU
+        all_idx = np.concatenate([split.train_idx, split.val_idx, split.test_idx]).astype(np.int64)
+        tables, row_of = tr._device_tables(ds, all_idx)
+        cases = [ds.get_case(ds.case_ids[int(i)]) for i in all_idx]
+        sizes = window_bag_sizes([c for c, _ in cases])
+        bad = 0
+        for i, (raw, lab) in zip(all_idx, cases):
+            want = pad_case(raw, lab, sizes)["channels"]
+            r = row_of[int(i)]
+            for k in ("hypergraph=incidence", "hypergraph=edge_weights"):
+                bad += not np.array_equal(tables["channels"][k][r].cpu().numpy(), want[k])
+        inc = tables["channels"]["hypergraph=incidence"]
+        s.check(bad == 0 and float(inc.sum()) > 0,
+                f"every case's incidence {tuple(inc.shape[1:])} and edge weights on the card equal "
+                f"data/batching.py's on the CPU ({bad} differ); {int(inc.sum())} incidences in all")
+
+        # one 64-case window card vs CPU, the same weights, window and draws
+        rows_t = torch.as_tensor([row_of[int(i)] for i in split.train_idx], dtype=torch.int64)
+        window = tr._gather_window(tables, rows_t[:MFMF_BATCH].to(dev))
+        card = ModelFactory.create_model(mc, seed=0, device=dev)
+        host = host_copy(card, mc)
+        cpu_tr = SurvivalTrainer(Configs(ec, mc), td / "cpu", device="cpu")
+        loss_card = float(tr._train_step(card, torch.optim.SGD(card.parameters(), lr=0.0), window,
+                                         torch.Generator().manual_seed(0)))
+        loss_cpu = float(cpu_tr._train_step(host, torch.optim.SGD(host.parameters(), lr=0.0),
+                                            cpu_copy(window), torch.Generator().manual_seed(0)))
+        errs = grad_errors(card, host)
+        worst = max(errs, key=errs.get)
+        rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+        s.check(rel <= 1e-5, f"one {MFMF_BATCH}-case window's mean case loss, card {loss_card!r} vs CPU "
+                             f"{loss_cpu!r}: relative {rel:.2e} <= 1e-5")
+        s.check(errs[worst] <= 1e-4, f"its gradients, card vs CPU: worst relative L2 {errs[worst]:.2e} "
+                                     f"<= 1e-4 over {len(errs)} tensors ({worst})")
+        del card, host
+
+        # training cases/s: timed 64-case windows on the device tables
+        model = tr._build_model(0)
+        opt = make_optimizer(ec.optimizer, ec.weight_decay, model.parameters(), ec.lr)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def device_window(i):
+            idx = rows_t[(i % 2) * MFMF_BATCH:(i % 2 + 1) * MFMF_BATCH].to(dev)
+            return tr._train_step(model, opt, tr._gather_window(tables, idx), gen)
+
+        device_window(0)
+        torch.cuda.synchronize()
+        walls, losses = [], []
+        for i in range(MFMF_TIMED_WINDOWS):
+            t0 = time.perf_counter()
+            losses.append(device_window(i + 1))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        rates = sorted(MFMF_BATCH / w for w in walls)
+        median = float(np.median(walls))
+        hg_run.update(device_window=device_window, median_ms=median * 1e3)
+        s.check(bool(torch.isfinite(torch.stack(losses)).all()), "timed windows' losses finite")
+        s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+        s.timed(f"cust_omics training, device path: median {MFMF_BATCH / median:.1f} cases/s over "
+                f"{MFMF_TIMED_WINDOWS} windows of {MFMF_BATCH} (min {rates[0]:.1f}, max {rates[-1]:.1f}): "
+                "gather, forward, backward, Adam")
+
+        # evaluate_fold over every case, then predict over the run's directory
+        everything = FoldSplit(empty_idx, empty_idx, np.arange(len(ds)))
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            direct = tr.evaluate_fold(ds, everything, 0)
+            walls.append(time.perf_counter() - t0)
+        s.timed(f"evaluate_fold over {len(ds)} cases in host windows of 16: "
+                f"{len(ds) / float(np.median(walls[1:])):.1f} cases/s (median of 2 runs after a warm-up)")
+        res = predict(run_dir, csv_path, td, folds=[0], device=dev)
+        got = {r["case_id"]: float(r["prob_1"]) for r in res["cases"]}
+        err = max(abs(got[c] - p[1]) for c, p in zip(direct["patient_ids"], direct["probs"]))
+        s.check(res["n_cases_scored"] == MFMF_CASES and err <= 1e-6 and np.isfinite(direct["probs"]).all(),
+                f"predict over the run's directory: {res['n_cases_scored']} cases, prob_1 within "
+                f"{err:.2e} <= 1e-6 of evaluate_fold")
+        no_kernel_launches("phase 22 after the build")
+
+    # ---------------------------------------------------------------- 23
+    def cust_omics_profile_phase():
+        """One phase-22 training window under the profiler: device busy
+        share, device ops, the longest device and host ops, idle gaps."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        reset_counts()
+        step = hg_run["device_window"]
+        step(0)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step(1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = _device_events(prof)
+        if not events:
+            s.log("  profiler saw no device time: device busy share not measured")
+            return
+        busy_ms = sum(us for _, us in events) / 1e3
+        s.timed(f"one {MFMF_BATCH}-case cust_omics training window under torch.profiler: wall "
+                f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% of the "
+                f"profiled wall), {sum(e.count for e, _ in events)} device ops")
+        s.timed(f"estimate: profiled device time over phase 22's median {hg_run['median_ms']:.2f} ms "
+                f"per window = {100 * busy_ms / hg_run['median_ms']:.1f}% device busy (two runs)")
+        for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
+            s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
+            s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
+        trace = hg_run["dir"] / "train_trace.json"
+        prof.export_chrome_trace(str(trace))
+        span, busy, gaps = _device_gaps(trace)
+        if span > 0:
+            s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
+                    f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
+                    f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
+            for us, before, after in gaps[:5]:
+                s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+        no_kernel_launches("phase 23")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -2470,7 +2906,10 @@ def main() -> int:
     s.phase("18. flagship training window, card vs CPU", flagship_train_check_phase)
     s.phase("19. main path: flagship training", flagship_training_phase)
     s.phase("20. where one flagship training window's time goes", flagship_train_profile_phase)
-    for d in (mfmf, flag, flag_train):
+    s.phase("21. the rest of the zoo, card vs CPU", zoo_phase)
+    s.phase("22. main path: build -> cust_omics training, evaluate_fold, predict", cust_omics_phase)
+    s.phase("23. where one cust_omics training window's time goes", cust_omics_profile_phase)
+    for d in (mfmf, flag, flag_train, zoo, hg_run):
         if "dir" in d:
             shutil.rmtree(d["dir"], ignore_errors=True)
 

@@ -18,21 +18,24 @@ from multimodal_fusion_tpu_torch.models.clam import CLAM
 from multimodal_fusion_tpu_torch.ops.losses import aucm_loss
 
 
-class AUCCLAM(CLAM):
+class AUCMGroupLoss:
+    """libauc's AUCMLoss as the window group loss, on the per-case logit
+    margin logits[:, 1] - logits[:, 0], with learnable scalars a, b and
+    alpha (mixed into AUC-CLAM and GateAUCMIL)."""
+
     # validation adds one AUCM group loss over the whole evaluated set, as
     # the reference's group_logits guard does (trainer.py:906-912); see
     # SurvivalTrainer._eval_summary
     stashes_group_logits = True
 
-    def __init__(self, config: ModelConfig, generator: torch.Generator):
-        super().__init__(config, generator)
-        # stored but never applied, as in the reference (auc_clam.py:316)
+    def _init_aucm(self, config: ModelConfig, device) -> None:
+        # auc_loss_weight is stored but never applied, as in the reference
+        # (auc_clam.py:316, gate_auc_mil.py:29,175)
         self.auc_loss_weight = config.get("auc_loss_weight", 1.0)
         self.auc_margin = config.get("auc_margin", 1.0)
-        dev = generator.device
-        self.auc_a = nn.Parameter(torch.zeros((), device=dev))
-        self.auc_b = nn.Parameter(torch.zeros((), device=dev))
-        self.auc_alpha = nn.Parameter(torch.zeros((), device=dev))
+        self.auc_a = nn.Parameter(torch.zeros((), device=device))
+        self.auc_b = nn.Parameter(torch.zeros((), device=device))
+        self.auc_alpha = nn.Parameter(torch.zeros((), device=device))
 
     def has_group_loss(self) -> bool:
         return True
@@ -51,3 +54,9 @@ class AUCCLAM(CLAM):
         was built with, as the JAX trainer's does."""
         a, b, alpha = (p.detach().clone() for p in (self.auc_a, self.auc_b, self.auc_alpha))
         return lambda window_results: self._aucm(window_results, a, b, alpha)
+
+
+class AUCCLAM(AUCMGroupLoss, CLAM):
+    def __init__(self, config: ModelConfig, generator: torch.Generator):
+        super().__init__(config, generator)
+        self._init_aucm(config, generator.device)

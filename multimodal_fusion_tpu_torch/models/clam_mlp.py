@@ -75,8 +75,9 @@ class ClamMLP(BaseModel):
         if config.inst_loss_fn not in (None, "ce"):
             raise ValueError(f"Unsupported instance loss: {config.inst_loss_fn}")
         self.used_modality = derive_used_modalities(self.channels_used_in_model)
+        # hypergraph= channels feed CustOmics' own network, not this trunk
         hg = [ch for ch in self.used_modality if ch.startswith("hypergraph=")]
-        if hg:
+        if hg and not getattr(self, "consumes_hypergraph", False):
             raise ValueError(
                 f"{type(self).__name__} does not consume hypergraph channels {hg}; use "
                 "model_type=cust_omics for hypergraph inputs"
@@ -89,7 +90,7 @@ class ClamMLP(BaseModel):
         self.instance_classifiers = nn.ModuleDict(
             {ch: b.instance_classifiers for ch, b in branches.items()})
         for ch in self.used_modality:
-            if ch in CLAM_CHANNELS:
+            if ch in CLAM_CHANNELS or ch.startswith("hypergraph="):
                 continue
             in_dim = config.channel_input_dims.get(ch)
             if in_dim is None:

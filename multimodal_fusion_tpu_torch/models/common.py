@@ -24,6 +24,16 @@ def torch_linear(in_dim: int, out_dim: int, generator: torch.Generator) -> nn.Li
     return layer
 
 
+def torch_linear_no_bias(in_dim: int, out_dim: int, generator: torch.Generator) -> nn.Linear:
+    """``nn.Linear(in_dim, out_dim, bias=False)`` with torch's default
+    fan-in bound 1/sqrt(in_dim), drawn from ``generator``."""
+    layer = nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=False, device=generator.device)
+    bound = 1.0 / (in_dim ** 0.5)
+    with torch.no_grad():
+        layer.weight.uniform_(-bound, bound, generator=generator)
+    return layer
+
+
 def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
             train: bool) -> torch.Tensor:
     """Inverted dropout with a Bernoulli mask drawn from ``generator``;

@@ -1,9 +1,11 @@
 """Model factory (counterpart of ``multimodal_fusion_tpu.models.factory``).
 
-The registry carries the JAX package's keys.  ``mfmf``, MIL, CLAM,
-AUC-CLAM, the ClamMLP trunk, the flagship svd_gate family and its Cox
-variant are ported; every other key raises ``NotImplementedError`` naming
-ROADMAP Queue 1 item 12 (the rest of the zoo), which ports it.
+The registry carries the JAX package's 24 keys, every one ported: the
+reference's 20, ``cust_omics`` (which the reference implements but leaves
+unregistered), the repaired ``svd_clam`` and ``auto_connections``, and the
+Cox head on the flagship trunk.  ``survival_params_from_jax`` (from
+``models.jax_params``) carries a JAX model's weights into any of them but
+``mfmf``.
 """
 
 from __future__ import annotations
@@ -19,7 +21,14 @@ from multimodal_fusion_tpu_torch.models.base import BaseModel
 from multimodal_fusion_tpu_torch.models.clam import CLAM, MILFC
 from multimodal_fusion_tpu_torch.models.clam_mlp import ClamMLP, ClamMLPDetach
 from multimodal_fusion_tpu_torch.models.cox import CoxSVDGateClam
+from multimodal_fusion_tpu_torch.models.extras import SVDCLAM, UniversalConnections
+from multimodal_fusion_tpu_torch.models.fbp import FBP
+from multimodal_fusion_tpu_torch.models.gate_mil import GateAUCMIL, GateMIL, GateMILDetach, GateSharedMIL
+from multimodal_fusion_tpu_torch.models.hypergraph_fusion import CustOmics
+from multimodal_fusion_tpu_torch.models.jax_params import survival_params_from_jax  # noqa: F401
 from multimodal_fusion_tpu_torch.models.mfmf import MFMF
+from multimodal_fusion_tpu_torch.models.pool_fusion import MDLM, SVDPool
+from multimodal_fusion_tpu_torch.models.ps3 import PS3
 from multimodal_fusion_tpu_torch.models.svd_gate import (
     ClipGateRandomClam,
     ClipGateRandomClamDetach,
@@ -29,7 +38,7 @@ from multimodal_fusion_tpu_torch.models.svd_gate import (
     SVDGateRandomClamDetach,
 )
 
-_PORTED = {
+MODEL_REGISTRY: Dict[str, Type[BaseModel]] = {
     "mil": MILFC,
     "clam": CLAM,
     "auc_clam": AUCCLAM,
@@ -41,18 +50,20 @@ _PORTED = {
     "clip_gate_random_clam_detach": ClipGateRandomClamDetach,
     "deep_supervise_svd_gate_random": DeepSuperviseSVDGateRandomClam,
     "deep_supervise_svd_gate_random_detach": DeepSuperviseSVDGateRandomClamDetach,
-    "cox_svd_gate_random_clam": CoxSVDGateClam,
+    "gate_shared_mil": GateSharedMIL,
+    "gate_mil": GateMIL,
+    "gate_auc_mil": GateAUCMIL,
+    "gate_mil_detach": GateMILDetach,
+    "svd_pool": SVDPool,
+    "mdlm": MDLM,
+    "ps3": PS3,
+    "fbp": FBP,
     "mfmf": MFMF,
-}
-_ITEM_12 = (
-    "gate_shared_mil", "gate_mil", "gate_auc_mil", "gate_mil_detach",
-    "svd_pool", "mdlm", "ps3", "fbp", "cust_omics", "svd_clam", "auto_connections",
-)
-
-# key -> model class, or the ROADMAP item that ports it
-MODEL_REGISTRY: Dict[str, Union[Type[BaseModel], str]] = {
-    **_PORTED,
-    **{k: "ROADMAP Queue 1 item 12" for k in _ITEM_12},
+    "cust_omics": CustOmics,
+    # dead code in the reference, repaired and registered by the JAX package
+    "svd_clam": SVDCLAM,
+    "auto_connections": UniversalConnections,
+    "cox_svd_gate_random_clam": CoxSVDGateClam,
 }
 
 
@@ -70,10 +81,8 @@ class ModelFactory:
             raise ValueError(
                 f"Unknown model type {model_type!r}; available: {sorted(MODEL_REGISTRY)}"
             )
-        cls = MODEL_REGISTRY[model_type]
-        if isinstance(cls, str):
-            raise NotImplementedError(f"model {model_type!r} is not ported yet ({cls})")
-        return cls(config, torch.Generator(device=resolve_device(device)).manual_seed(seed))
+        return MODEL_REGISTRY[model_type](
+            config, torch.Generator(device=resolve_device(device)).manual_seed(seed))
 
     @staticmethod
     def available_models():

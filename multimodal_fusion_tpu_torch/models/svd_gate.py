@@ -20,16 +20,15 @@ the case losses: the rank-1 SVD loss over ``aligned_features_stack``
 carry the reference's ``state_dict`` names (``TCPClassifier.<ch>.{0,3}``,
 ``TCPConfidenceLayer.<ch>.{0,1,2}``, ``alignment_layers.<ch>.<i>``,
 ``Classifier.<ch>.{0,3}``, ``clip_logit_scale``);
-:func:`survival_params_from_jax` carries the JAX models' parameters
-across.
+``models.jax_params.survival_params_from_jax`` carries the JAX models'
+parameters across.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Optional, Tuple
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -333,107 +332,3 @@ class DeepSuperviseSVDGateRandomClamDetach(SVDGateRandomClamDetach, DeepSupervis
         features, out = DeepSuperviseSVDGateRandomClam._deep_supervise(
             self, features, label, generator=generator, train=train)
         return {ch: v if ch in CLAM_CHANNELS else v.detach() for ch, v in features.items()}, out
-
-
-# ----------------------------------------------------------------------
-# weights from the JAX models
-
-# JAX module path (with <ch> standing for a channel key) -> the port's
-# reference state_dict prefix
-_JAX_TO_PORT = {
-    ("clam_branches", "<ch>", "core", "fc"): "attention_net.<ch>.0",
-    ("clam_branches", "<ch>", "core", "attn", "fc_a"): "attention_net.<ch>.3.attention_a.0",
-    ("clam_branches", "<ch>", "core", "attn", "fc_b"): "attention_net.<ch>.3.attention_b.0",
-    ("clam_branches", "<ch>", "core", "attn", "fc_c"): "attention_net.<ch>.3.attention_c",
-    ("clam_branches", "<ch>", "core", "attn", "fc1"): "attention_net.<ch>.3.module.0",
-    ("clam_branches", "<ch>", "core", "attn", "fc2"): "attention_net.<ch>.3.module.3",
-    ("clam_branches", "<ch>", "transfer"): "transfer_layer.<ch>",
-    ("clam_branches", "<ch>", "classifier"): "classifiers.<ch>",
-    ("clam_branches", "<ch>", "instance_classifiers", "<i>"): "instance_classifiers.<ch>.<i>",
-    ("transfer_layers", "<ch>"): "transfer_layer.<ch>",
-    ("fusion_fc1",): "fusion_prediction.0",
-    ("fusion_fc2",): "fusion_prediction.1",
-    ("tcp_classifiers", "<ch>", "fc1"): "TCPClassifier.<ch>.0",
-    ("tcp_classifiers", "<ch>", "fc2"): "TCPClassifier.<ch>.3",
-    ("tcp_confidence", "<ch>", "fc1"): "TCPConfidenceLayer.<ch>.0",
-    ("tcp_confidence", "<ch>", "fc2"): "TCPConfidenceLayer.<ch>.1",
-    ("tcp_confidence", "<ch>", "fc3"): "TCPConfidenceLayer.<ch>.2",
-    ("alignment_layers", "<ch>", "layers", "<i>"): "alignment_layers.<ch>.<i>",
-    ("ds_classifiers", "<ch>", "fc1"): "Classifier.<ch>.0",
-    ("ds_classifiers", "<ch>", "fc2"): "Classifier.<ch>.3",
-    ("risk_head",): "risk_head",
-    ("risk_head_logits",): "risk_head_logits",
-    # CLAM
-    ("core", "fc"): "attention_net.0",
-    ("core", "attn", "fc_a"): "attention_net.3.attention_a.0",
-    ("core", "attn", "fc_b"): "attention_net.3.attention_b.0",
-    ("core", "attn", "fc_c"): "attention_net.3.attention_c",
-    ("core", "attn", "fc1"): "attention_net.3.module.0",
-    ("core", "attn", "fc2"): "attention_net.3.module.3",
-    ("instance_classifiers", "<i>"): "instance_classifiers.<i>",
-}
-
-
-# scalar parameters that keep their JAX names
-_SCALARS = {("clip_logit_scale",), ("auc_a",), ("auc_b",), ("auc_alpha",)}
-
-
-def _flatten(state: Mapping, prefix=()) -> Dict[tuple, object]:
-    out = {}
-    for key, value in state.items():
-        path = prefix + (key if isinstance(key, tuple) else (key,))
-        if isinstance(value, Mapping):
-            out.update(_flatten(value, path))
-        else:
-            out[path] = value
-    return out
-
-
-def _port_prefix(module_path: Tuple[str, ...], is_clam: bool) -> str:
-    if module_path == ("classifier",):  # CLAM's bag classifier; MIL's keeps its name
-        return "classifiers" if is_clam else "classifier"
-    if module_path == ("fc",):  # MIL
-        return "fc.0"
-    for pattern, target in _JAX_TO_PORT.items():
-        if len(pattern) != len(module_path):
-            continue
-        subs = {}
-        for want, got in zip(pattern, module_path):
-            if want in ("<ch>", "<i>"):
-                subs[want] = got
-            elif want != got:
-                break
-        else:
-            for k, v in subs.items():
-                target = target.replace(k, v)
-            return target
-    raise KeyError(f"no port parameter for the JAX parameter {'.'.join(module_path)}")
-
-
-def survival_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
-    """The port's state dict of a MIL, CLAM, AUC-CLAM, ClamMLP,
-    svd_gate-family or Cox model from the JAX model's parameters, given as a nested pure dict
-    (``nnx.to_pure_dict(nnx.state(model, nnx.Param))``) or flat ``{path:
-    array}`` with tuple or dotted-string paths.  Linear ``kernel`` [in, out]
-    becomes ``weight`` [out, in]; names follow the reference state_dict
-    (``attention_net.<ch>.0``, ``TCPClassifier.<ch>.3``, ...).  Load with
-    ``model.load_state_dict``."""
-    flat = {}
-    for key, value in _flatten(state).items():
-        parts = tuple(str(p) for p in key)
-        if len(parts) == 1 and "." in parts[0]:
-            parts = tuple(parts[0].split("."))
-        flat[parts] = value
-    is_clam = any(p[0] == "core" for p in flat)
-    out: Dict[str, torch.Tensor] = {}
-    for parts, value in flat.items():
-        arr = np.asarray(value, dtype=np.float32)
-        if parts in _SCALARS:
-            out[parts[0]] = torch.from_numpy(arr.copy())
-            continue
-        prefix, leaf = _port_prefix(parts[:-1], is_clam), parts[-1]
-        if leaf == "kernel":
-            out[f"{prefix}.weight"] = torch.from_numpy(arr.T.copy())
-        else:
-            out[f"{prefix}.{leaf}"] = torch.from_numpy(arr.copy())
-    return out

@@ -32,7 +32,7 @@ from multimodal_fusion_tpu.ops import masked as jmasked
 from multimodal_fusion_tpu.utils.torch_import import import_survival_checkpoint
 from multimodal_fusion_tpu_torch import config as tconfig
 from multimodal_fusion_tpu_torch.models.factory import ModelFactory
-from multimodal_fusion_tpu_torch.models.svd_gate import survival_params_from_jax
+from multimodal_fusion_tpu_torch.models.jax_params import survival_params_from_jax
 from multimodal_fusion_tpu_torch.ops import masked as tmasked
 from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
 

@@ -33,7 +33,7 @@ from multimodal_fusion_tpu_torch import config as tconfig
 from multimodal_fusion_tpu_torch.data import splits as tsplits
 from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
 from multimodal_fusion_tpu_torch.models.factory import ModelFactory
-from multimodal_fusion_tpu_torch.models.svd_gate import survival_params_from_jax
+from multimodal_fusion_tpu_torch.models.jax_params import survival_params_from_jax
 from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
 
 FLAGSHIP = ["wsi", "cd3", "cd8", "clinical_mask", "blood_mask"]

@@ -36,7 +36,7 @@ from multimodal_fusion_tpu_torch.config import Configs
 from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
 from multimodal_fusion_tpu_torch.data.splits import FoldSplit
 from multimodal_fusion_tpu_torch.models.factory import ModelFactory
-from multimodal_fusion_tpu_torch.models.svd_gate import survival_params_from_jax
+from multimodal_fusion_tpu_torch.models.jax_params import survival_params_from_jax
 from multimodal_fusion_tpu_torch.train import metrics as tmetrics
 from multimodal_fusion_tpu_torch.train.checkpoint import save_model
 from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
