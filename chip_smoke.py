@@ -47,7 +47,18 @@ port's paths through their entry points:
   training cases/s over 64-case windows on the device tables, bench.py's
   training cell in slides/s, the training CLI over one fold of phase 12's
   cases and ``predict`` over the directory it wrote; a profile of one
-  training window and of its SVD group loss.
+  training window and of its SVD group loss;
+- the two pretraining stages, on which no TPU kernel lies: alignment
+  pretraining at the width of ``exp_volume_256_tma.sh`` /
+  ``exp_svd_256_tma.sh`` (8 markers x 1024, 2 layers, batches of 512) on
+  NPZs of 1024 cores x 8 patches, one batch card vs CPU for the volume,
+  rank-1 "gram" and "svd" losses and ``validate()``; ``cli/run_alignment.py``
+  with the script's flags, its step rates, and its checkpoint aligning
+  the 8 markers at load time through the survival CLI, ``predict`` and
+  the scoring server; the VAE at ``run_vae_train.sh``'s width, one step
+  card vs CPU, ``cli/train_vae.py`` over the living cases and
+  ``cli/generate_reconstructed_wsi.py`` over every case; a profile of one
+  step of each.
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
@@ -118,6 +129,17 @@ SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64, 160)
 # of 8 cases at the inference cell's shape
 BENCH_TRAIN_STEPS = 16
 
+# alignment pretraining (experiments/alignment/exp_volume_256_tma.sh and
+# exp_svd_256_tma.sh, which differ only in --loss_type) on NPZs of 8 markers x
+# 1024 cores x 8 patches x 1024; the VAE at run_vae_train.sh's width (1024 ->
+# [512, 256] -> 128, batches of 1024) over phase 12's living cases
+ALIGN_CORES, ALIGN_PATCHES, ALIGN_BATCH = 1024, 8, 512
+ALIGN_FLAGS = ["--mismatch_ratio", "1.0", "--seed", "42", "--lambda1", "1.0", "--lambda2", "0.1",
+               "--tau1", "0.1", "--tau2", "0.05", "--num_layers", "2", "--max_steps", "400",
+               "--batch_size", str(ALIGN_BATCH), "--lr", "1e-4", "--weight_decay", "1e-5",
+               "--loss2_chunk_size", "8", "--align_mode", "intersection"]
+VAE_BATCH = 1024
+
 
 def _card_line() -> str:
     out = subprocess.run(
@@ -179,20 +201,35 @@ class Smoke:
         """Device time per call of ``fn`` by kernel (short name -> ms), from
         torch.profiler over ``reps`` calls after a warm-up: without the
         host's launch overhead, which the event-timed loop of ``cuda_ms``
-        includes whenever it exceeds the kernels' time."""
+        includes whenever it exceeds the kernels' time.
+
+        The profiler is a measurement, not a check: a profile that sees no
+        device time, or raises, is taken again up to twice, and after that
+        the call returns {} and the caller reports the time as not
+        measured."""
         from torch.profiler import ProfilerActivity, profile
 
         fn()
         self.torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            self.torch.cuda.synchronize()
-        out: dict = {}
-        for e, us in _device_events(prof):
-            name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
-            out[name] = out.get(name, 0.0) + us / 1e3 / reps
-        return out
+        for attempt in range(3):
+            try:
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        fn()
+                    self.torch.cuda.synchronize()
+                events = _device_events(prof)
+            except Exception as exc:  # noqa: BLE001 - reported, then retried
+                self.log(f"  profiler attempt {attempt + 1} raised {type(exc).__name__}: {exc}")
+                continue
+            if events:
+                out: dict = {}
+                for e, us in events:
+                    name = e.key.replace("void ", "").replace("(anonymous namespace)::", "").split("(")[0]
+                    out[name] = out.get(name, 0.0) + us / 1e3 / reps
+                return out
+            self.log(f"  profiler attempt {attempt + 1} saw no device time")
+        self.log("  device time not measured")
+        return {}
 
     def phase(self, name: str, fn) -> None:
         self.log(f"== {name}")
@@ -200,7 +237,9 @@ class Smoke:
         try:
             fn()
         except Exception:  # a failed phase fails the run; later phases still report
-            self.log(traceback.format_exc())
+            tb = traceback.format_exc()
+            self.log(tb)
+            print(f"{name}:\n{tb}", file=sys.stderr, flush=True)
             self.failures.append(f"{name}: exception")
         self.log(f"   ({name}: {time.perf_counter() - t0:.1f} s wall)")
 
@@ -475,7 +514,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
-    from multimodal_fusion_tpu_torch.channels import TMA_MARKERS, parse_channels
+    from multimodal_fusion_tpu_torch.channels import TMA_MARKERS, h5_path_for_channel, parse_channels
     from multimodal_fusion_tpu_torch.cli import main_survival as cli_main
     from multimodal_fusion_tpu_torch.config import Configs, ExperimentConfig, ModelConfig
     from multimodal_fusion_tpu_torch.data.splits import create_k_fold_splits
@@ -486,11 +525,18 @@ def main() -> int:
     )
     from multimodal_fusion_tpu_torch.device import resolve_device
     from multimodal_fusion_tpu_torch.hypergraph import build
+    from multimodal_fusion_tpu_torch.data.alignment import TMANpzAlignedWithNegDataset
+    from multimodal_fusion_tpu_torch.data.vae_patches import WSIVAEDataset, split_train_val
     from multimodal_fusion_tpu_torch.io.fixtures import (
         TABULAR_DIMS,
         clustered_slide,
+        make_alignment_npz_fixtures,
         make_clustered_dataset,
     )
+    from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
+    from multimodal_fusion_tpu_torch.models.vae import VAE, vae_loss
+    from multimodal_fusion_tpu_torch.train.alignment import MultiModalAlignmentTrainer
+    from multimodal_fusion_tpu_torch.train.vae import VAETrainer
     from multimodal_fusion_tpu_torch.models.base import checkpoint_replaying
     from multimodal_fusion_tpu_torch.models.factory import ModelFactory
     from multimodal_fusion_tpu_torch.models.mfmf import DEFAULT_FUSION_SEQUENCE
@@ -524,7 +570,7 @@ def main() -> int:
     )
     from multimodal_fusion_tpu_torch.data.batching import make_window
     from multimodal_fusion_tpu_torch.data.splits import FoldSplit
-    from multimodal_fusion_tpu_torch.train.checkpoint import save_model
+    from multimodal_fusion_tpu_torch.train.checkpoint import load_state, save_model
     from multimodal_fusion_tpu_torch.train.optim import make_optimizer
     from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
     from multimodal_fusion_tpu_torch.utils import results_io
@@ -995,9 +1041,12 @@ def main() -> int:
                 q2, k2, v2 = (x[:, :VIT_TOKENS - 1] for x in (q, k, v))
                 edge = sum(s.device_ms(lambda: attention_fwd(q2, k2, v2)).values())
                 full = route_ms["attention"]["general"][f"ViT {shape}"]["device_ms"]
-                s.timed(f"K3 ViT bf16 at {VIT_TOKENS - 1} tokens: device {edge:.4f} ms against "
-                        f"{full:.4f} ms at {VIT_TOKENS}: the edge takes {100 * (1 - edge / full):.1f}% "
-                        f"of the kernel's time")
+                if edge > 0 and full > 0:
+                    s.timed(f"K3 ViT bf16 at {VIT_TOKENS - 1} tokens: device {edge:.4f} ms against "
+                            f"{full:.4f} ms at {VIT_TOKENS}: the edge takes "
+                            f"{100 * (1 - edge / full):.1f}% of the kernel's time")
+                else:
+                    s.log("  K3 ViT bf16 257-token edge: device time not measured")
             if dtype == torch.float32:  # the extraction's default path
                 s.kernels["attention"] = {
                     "name": "attention", "route": "cuda",
@@ -1853,7 +1902,7 @@ def main() -> int:
             return same, err
 
         original = results_io.build_dataset
-        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None: _CsvCases(
+        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None, **_: _CsvCases(
             csv_path, by_path)
         s.log("  utils.results_io.build_dataset is replaced by an in-memory reader keyed by "
               "h5_file_path (this machine has no h5py); everything downstream is the port's own")
@@ -2367,7 +2416,7 @@ def main() -> int:
         csv_path = td / "cases.csv"
         write_csv(csv_path, csv_rows)
         original = results_io.build_dataset
-        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None: _CsvCases(
+        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None, **_: _CsvCases(
             csv_path, by_path)
         try:
             res = predict(out_dir, csv_path, out_dir, device=dev)
@@ -2886,6 +2935,503 @@ def main() -> int:
                 s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
         no_kernel_launches("phase 23")
 
+    # ---------------------------------------------------------------- 24
+    pre = {}  # NPZ dir, views, checkpoints and one step of each path, read by phases 25-27
+
+    def alignment_data():
+        """The NPZs (8 markers x ALIGN_CORES cores x ALIGN_PATCHES patches x
+        1024, ``make_alignment_npz_fixtures``) and run_alignment's 8:1:1
+        views of them, built once."""
+        if "views" not in pre:
+            td = Path(tempfile.mkdtemp(prefix="pretrain_"))
+            t0 = time.perf_counter()
+            make_alignment_npz_fixtures(td / "npz", n_cores=ALIGN_CORES, patches_per_core=ALIGN_PATCHES,
+                                        feature_dim=DIM, markers=TMA_MARKERS, seed=24)
+            s.log(f"  NPZs written: {len(TMA_MARKERS)} markers x {ALIGN_CORES} cores x {ALIGN_PATCHES} "
+                  f"patches x {DIM} in {time.perf_counter() - t0:.1f} s (host, compressed)")
+            ds = TMANpzAlignedWithNegDataset(td / "npz", list(TMA_MARKERS), filename_template="{marker}.npz",
+                                             mismatch_ratio=1.0, seed=42)
+            # run_alignment.py's split: RandomState(seed).shuffle, 8:1:1
+            keys = list(ds.normalized_keys)
+            idx = np.arange(len(keys))
+            np.random.RandomState(42).shuffle(idx)
+            keys = [keys[i] for i in idx]
+            n_train, n_val = int(len(keys) * 0.8), int(len(keys) * 0.1)
+            pre.update(dir=td, npz=td / "npz", views=ds.split_by_ids_with_neg(
+                {"train": keys[:n_train], "val": keys[n_train:n_train + n_val]}, id_type="tuple", seed=42))
+        return pre["views"]
+
+    def alignment_trainer(device, loss_type, svd_impl="gram", state=None, dtype=torch.float32):
+        """exp_{volume,svd}_256_tma.sh's model and trainer (8 markers,
+        1024-d, 2 layers, tau1 0.1, tau2 0.05, lambda2 0.1, chunks of 8, lr
+        1e-4, weight decay 1e-5), from ``state`` when given."""
+        model = MultiModalAlignmentModel(list(TMA_MARKERS), feature_dim=DIM, num_layers=2,
+                                         generator=torch.Generator(device=device).manual_seed(42))
+        if state is not None:
+            model.load_state_dict(state)
+        model.to(dtype=dtype)
+        return MultiModalAlignmentTrainer(model, learning_rate=1e-4, weight_decay=1e-5,
+                                          loss_type=loss_type, svd_impl=svd_impl, tau1=0.1, tau2=0.05,
+                                          lambda1=1.0, lambda2=0.1, loss2_chunk_size=8)
+
+    def held(label, pair, bars):
+        """``pair(dtype)`` -> ({name: value} on the card, the same on the
+        CPU), each name held within its bar (a function of the two values).
+        Where float32 rounding alone exceeds a bar, the comparison is held
+        in float64 on both sides at the same bar, with the float32 readings
+        and each side's float32 distance from its own float64 run printed
+        beside it."""
+        c32, h32 = pair(torch.float32)
+        errs = {k: bars[k][0](c32[k], h32[k]) for k in bars}
+        if all(errs[k] <= bars[k][1] for k in bars):
+            s.check(True, f"{label}, card vs CPU in float32: " + ", ".join(
+                f"{k} {errs[k]:.2e} <= {bars[k][1]:.0e}" for k in bars))
+            return
+        c64, h64 = pair(torch.float64)
+        errs64 = {k: bars[k][0](c64[k], h64[k]) for k in bars}
+        s.log(f"  {label}: float32 readings " + ", ".join(f"{k} {errs[k]:.2e}" for k in bars)
+              + "; float32 against its own float64 run: card " + ", ".join(
+                  f"{k} {bars[k][0](c32[k], c64[k]):.2e}" for k in bars) + ", CPU " + ", ".join(
+                  f"{k} {bars[k][0](h32[k], h64[k]):.2e}" for k in bars))
+        s.check(all(errs64[k] <= bars[k][1] for k in bars),
+                f"{label}, card vs CPU held in float64 (float32 rounding exceeds a bar): " + ", ".join(
+                    f"{k} {errs64[k]:.2e} <= {bars[k][1]:.0e}" for k in bars))
+
+    def on_both(run):
+        return lambda dtype: (run(dev, dtype), run("cpu", dtype))
+
+    def rel(a, b):
+        return abs(a - b) / abs(b)
+
+    def rel_max(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def worst_rel_l2(a, b):
+        return max(float((x - y).norm() / y.norm().clamp_min(1e-30)) for x, y in zip(a, b))
+
+    step_bars = {"loss": (rel, 1e-5), "grads": (worst_rel_l2, 1e-4), "svd_values": (rel_max, 1e-4)}
+
+    def alignment_step_phase():
+        """One batch of 512 of run_alignment's training view, card vs CPU
+        from the same weights, batch and predictor dropout masks (one CPU
+        generator): volume, rank1 "gram" and rank1 "svd" (the CPU at the
+        card's signs of U1); validate() card vs CPU."""
+        reset_counts()
+        views = alignment_data()
+        t0 = time.perf_counter()
+        pos, neg = views["train"].collate(np.arange(ALIGN_BATCH), 0)
+        s.log(f"  one batch of {ALIGN_BATCH} collated in {time.perf_counter() - t0:.2f} s (host); "
+              f"views: {len(views['train'])} train, {len(views['val'])} val samples")
+        state = {k: t.cpu() for k, t in alignment_trainer(dev, "volume").model.state_dict().items()}
+
+        def one_step(loss_type, svd_impl):
+            def run(device, dtype):
+                tr = alignment_trainer(device, loss_type, svd_impl, state, dtype)
+                batch = [{m: torch.as_tensor(v, device=device, dtype=dtype) for m, v in b.items()}
+                         for b in (pos, neg)]
+                loss, svd = tr._loss(*batch, torch.Generator().manual_seed(7), True)
+                grads = torch.autograd.grad(loss, tr.params)
+                return {"loss": float(loss.detach()), "svd_values": svd.detach().cpu().double(),
+                        "grads": [g.cpu().double() for g in grads]}
+            return run
+
+        held("volume step (exp_volume_256_tma)", on_both(one_step("volume", "gram")), step_bars)
+        held("rank1 'gram' step with loss_IM (exp_svd_256_tma)", on_both(one_step("rank1", "gram")),
+             step_bars)
+        run_svd = one_step("rank1", "svd")
+
+        def svd_pair(dtype):
+            # the card's run records U1; the CPU's run that follows takes its signs
+            with card_signs_on_cpu() as flips:
+                out = run_svd(dev, dtype), run_svd("cpu", dtype)
+            s.log(f"  rank1 'svd' ({dtype}): the CPU took the card's U1 signs, {flips} flipped")
+            return out
+
+        held("rank1 'svd' step with loss_IM, the CPU at the card's signs", svd_pair, step_bars)
+
+        def validate(device, dtype):
+            return {"val_loss": alignment_trainer(device, "volume", state=state, dtype=dtype).validate(
+                views["val"], ALIGN_BATCH)}
+
+        held(f"volume validate() over {len(views['val'])} samples", on_both(validate),
+             {"val_loss": (rel, 1e-5)})
+
+        # the volume loss's eigenvalue monitor at batch 512 takes 262144 8 x 8
+        # matrices, more than cuSOLVER's batched eigensolver takes in one call
+        x = torch.randn(32768, 8, 16, device=dev, generator=torch.Generator(device=dev).manual_seed(0))
+        g8 = x @ x.transpose(1, 2)
+        for b in (16384, 32768):
+            try:
+                torch.linalg.eigvalsh(g8[:b])
+                torch.cuda.synchronize()
+                s.log(f"  torch.linalg.eigvalsh of {b} 8 x 8 matrices in one call: taken")
+            except RuntimeError as e:
+                s.log(f"  torch.linalg.eigvalsh of {b} 8 x 8 matrices in one call: refused ({str(e)[:90]})")
+        err = rel_max(losses_mod.eigvalsh_chunked(g8).cpu().double(), torch.linalg.eigvalsh(g8.cpu().double()))
+        s.check(err <= 1e-5, f"ops.losses.eigvalsh_chunked of 32768 8 x 8 matrices on the card vs float64 "
+                             f"on the CPU: {err:.2e} <= 1e-5 of the largest eigenvalue")
+        no_kernel_launches("phase 24")
+
+    # ---------------------------------------------------------------- 25
+    def timed_steps(label, trainer, stream, windows=5, steps=10, warmup=2):
+        """Median of ``windows`` windows of ``steps`` training steps after a
+        warm-up, host clock to synchronize; returns the median ms a step."""
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for _ in range(warmup):
+            trainer._step(*next(stream), gen)
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(windows):
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                trainer._step(*next(stream), gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        median = float(np.median(walls))
+        s.timed(f"{label}: median {steps / median:.2f} steps/s = {steps * ALIGN_BATCH / median:.1f} "
+                f"samples/s over {windows} windows of {steps} steps (min {steps / max(walls):.2f}, max "
+                f"{steps / min(walls):.2f} steps/s); {1e3 * median / steps:.2f} ms a step")
+        return 1e3 * median / steps
+
+    def in_memory_h5(td, raws):
+        """Empty placeholder files (the dataset keeps the cases whose file
+        exists) and an in-memory stand-in for each (``_H5Arrays``), keyed as
+        MultimodalDataset opens them."""
+        store = {}
+        for i, raw in enumerate(raws):
+            path = td / f"case_{i:03d}.h5"
+            path.touch()
+            store[str(path)] = _H5Arrays({h5_path_for_channel(c): v for c, v in raw.items()})
+        return store
+
+    def case_rows(labels):
+        return [{"patient_id": str(1000 + i), "case_id": f"case_{i:03d}",
+                 "label": ("deceased", "living")[int(lab)], "h5_file_path": f"case_{i:03d}.h5"}
+                for i, lab in enumerate(labels)]
+
+    def alignment_training_phase():
+        """Main path: run_alignment.py with exp_volume_256_tma's flags (and
+        --val_interval 100) on the NPZs; step rates with device_data on and
+        off and the rank1 "gram" step; then the survival CLI over fold 9 of
+        10 of phase 12's cases with the checkpoint aligning the 8 markers,
+        predict and the scoring server over its directory."""
+        from multimodal_fusion_tpu_torch.cli import run_alignment as cli_align
+        from multimodal_fusion_tpu_torch.data import multimodal as multimodal_mod
+
+        reset_counts()
+        views = alignment_data()
+        save = pre["dir"] / "volume" / "model.npz"
+        t0 = time.perf_counter()
+        out = cli_align.main(["--base_dir", str(pre["npz"]), "--filename_template", "{marker}.npz",
+                              *ALIGN_FLAGS, "--loss_type", "volume", "--val_interval", "100",
+                              "--save_path", str(save), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        hist = out["history"]
+        s.check(len(hist["train_loss"]) == 400 and np.isfinite(hist["train_loss"]).all()
+                and len(hist["val_loss"]) == 4 and save.exists()
+                and Path(f"{save}.history.json").exists() and Path(f"{save}.scalars.csv").exists(),
+                f"run_alignment.py: {len(hist['train_loss'])} steps, losses finite, "
+                f"{len(hist['val_loss'])} validations, model.npz, .history.json and .scalars.csv written")
+        s.log("  train loss at steps 0, 99, 199, 299, 399: " + ", ".join(
+            f"{hist['train_loss'][i]:.4f}" for i in (0, 99, 199, 299, 399)) + "; val: " + ", ".join(
+            f"{v['step']}: {v['loss']:.4f}" for v in hist["val_loss"]))
+        s.timed(f"run_alignment.py, 400 steps of {ALIGN_BATCH} (volume, 8 x {DIM}) with 4 validations, "
+                f"the NPZ reads and table upload included: {wall:.2f} s = {400 / wall:.2f} steps/s")
+        pre["ckpt"] = save
+
+        vol = alignment_trainer(dev, "volume")
+        vol_stream = vol.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), True)
+        pre["volume_ms"] = timed_steps("volume step, device_data on", vol, vol_stream)
+        pre["volume_step"] = lambda: vol._step(*next(vol_stream),
+                                               torch.Generator(device=dev).manual_seed(0))
+        # the host collate decompresses each of a batch's 8192 NPZ rows' cores
+        # (~2.7 s a step): 3 windows of 2 steps
+        off = alignment_trainer(dev, "volume")
+        timed_steps("volume step, device_data off", off,
+                    off.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), False),
+                    windows=3, steps=2, warmup=1)
+        r1 = alignment_trainer(dev, "rank1", "gram")
+        r1_stream = r1.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), True)
+        pre["rank1_ms"] = timed_steps("rank1 'gram' step (Jacobi eigensolver), device_data on", r1,
+                                      r1_stream, windows=3, steps=5)
+        pre["rank1_step"] = lambda: r1._step(*next(r1_stream),
+                                             torch.Generator(device=dev).manual_seed(0))
+
+        # the survival CLI with the checkpoint, fold 9 of 10 of phase 12's cases
+        raws, labels = mfmf_raw_cases()
+        td = pre["dir"] / "survival"
+        td.mkdir()
+        store = in_memory_h5(td, raws)
+        csv_path = td / "dataset.csv"
+        write_csv(csv_path, case_rows(labels))
+        original = multimodal_mod.read_h5_retrying
+        multimodal_mod.read_h5_retrying = lambda path, fn, *a, **k: fn(store[str(path)])
+        try:
+            aligned_survival(csv_path, td, raws)
+        finally:
+            multimodal_mod.read_h5_retrying = original
+        s.log("  the HDF5 files were NOT read: MultimodalDataset read the cases through an in-memory "
+              "stand-in for h5py.File (the card's machine has no h5py)")
+        no_kernel_launches("phase 25")
+
+    def aligned_survival(csv_path, td, raws):
+        import http.client
+        import threading
+
+        from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
+
+        shorthands = ["wsi", "tma"] + list(TABULAR_DIMS)
+        align_map = {f"tma={mk}=features": mk for mk in TMA_MARKERS}
+        t0 = time.perf_counter()
+        out_dir = cli_main.main(
+            ["--csv_path", str(csv_path), "--data_root_dir", str(td), "--results_dir", str(td / "results"),
+             "--exp_code", "aligned", "--model_type", "svd_gate_random_clam",
+             "--target_channels", *shorthands, "--channels_used_in_model", *shorthands,
+             "--alignment_model_path", str(pre["ckpt"]),
+             "--aligned_channels", *[f"{c}:{m}" for c, m in align_map.items()],
+             "--k", "10", "--start_k_fold", "9", "--max_epochs", "2", "--lr", "1e-4",
+             "--reg", "1e-5", "--opt", "adam", "--batch_size", "64", "--input_dim", str(DIM),
+             "--dropout", "0.25", "--base_weight", "0.9", "--model_size", "64*32", "--inst_number", "8",
+             "--output_dim", str(FLAG_DIM), "--alignment_layer_num", "2", "--lambda1", "0.1",
+             "--lambda2", "0.1", "--tau1", "1.0", "--tau2", "1.0", "--subtyping", "--enable_svd",
+             "--enable_dynamic_gate", "--enable_random_loss", "--seed", "5678", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        configs = Configs.load(out_dir / "configs_aligned.json")
+        fold = json.loads((out_dir / "fold_9_summary.json").read_text())
+        s.check(configs.experiment_config.get("aligned_channels_map") == align_map
+                and all(np.isfinite([h["train_loss"], h["val_loss"]]).all() for h in fold["history"]),
+                f"cli.main_survival with --alignment_model_path: fold 9, {len(fold['history'])} epochs, "
+                "losses finite, the colon mapping of the 8 markers persisted")
+        s.timed(f"cli.main_survival.main with the alignment checkpoint, fold 9 of 10, 2 epochs and "
+                f"evaluation, the dataset's load-time alignment included: {wall:.2f} s")
+
+        targets = configs.experiment_config.target_channels
+        card_ds = results_io.build_dataset(configs, csv_path, td, device=dev)
+        cpu_fn = results_io.load_alignment_model(pre["ckpt"], align_map, "cpu")
+        cpu_ds = MultimodalDataset(csv_path, td, targets, align_channels=align_map, alignment_apply_fn=cpu_fn)
+        err, n = 0.0, 0
+        for cid in card_ds.case_ids[:8]:
+            got, want = card_ds.get_case(cid)[0], cpu_ds.get_case(cid)[0]
+            for ch in align_map:
+                err = max(err, float(np.abs(got[f"aligned_{ch}"] - want[f"aligned_{ch}"]).max()))
+                n += 1
+        s.check(n == 64 and err <= 1e-5, f"aligned_<channel> features on the card vs a CPU run of the "
+                                          f"checkpoint: {n} arrays, max abs err {err:.2e} <= 1e-5")
+
+        res = predict(out_dir, csv_path, td, folds=[9], device=dev)
+        tr = SurvivalTrainer(configs, out_dir, device=dev)
+        direct = tr.evaluate_fold(card_ds, FoldSplit(empty_idx, empty_idx, np.arange(len(card_ds))), 9)
+        got = {r["case_id"]: float(r["prob_1"]) for r in res["cases"]}
+        err = max(abs(got[c] - p[1]) for c, p in zip(direct["patient_ids"], direct["probs"]))
+        s.check(res["n_cases_scored"] == MFMF_CASES and err <= 1e-6,
+                f"predict over the aligned run's directory: {res['n_cases_scored']} cases, prob_1 within "
+                f"{err:.2e} <= 1e-6 of evaluate_fold")
+
+        loads = []
+        plain_load = results_io.load_alignment_model
+        results_io.load_alignment_model = lambda *a, **k: loads.append(1) or plain_load(*a, **k)
+        httpd = thread = None
+        try:
+            httpd = make_server(out_dir, td, port=0, device=dev)
+            thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+            thread.start()
+            conn = http.client.HTTPConnection("127.0.0.1", httpd.server_address[1], timeout=600)
+            rows = [{k: r[k] for k in ("patient_id", "case_id", "h5_file_path")}
+                    for r in case_rows(np.zeros(MFMF_CASES))]
+            t0 = time.perf_counter()
+            conn.request("POST", "/predict", body=json.dumps({"cases": rows}))
+            resp = conn.getresponse()
+            body = json.loads(resp.read())
+            wall = time.perf_counter() - t0
+            conn.close()
+        finally:
+            results_io.load_alignment_model = plain_load
+            if httpd is not None:
+                httpd.shutdown()
+                httpd.server_close()
+            if thread is not None:
+                thread.join(timeout=60)
+        served = {r["case_id"]: float(r["prob_1"]) for r in body.get("cases", [])}
+        err = max((abs(served[c] - got[c]) for c in got), default=float("inf")) if served else float("inf")
+        s.check(resp.status == 200 and len(served) == MFMF_CASES and err <= 1e-6 and len(loads) == 1,
+                f"make_server over the aligned run: one POST /predict of {len(served)} cases ({resp.status}), "
+                f"prob_1 within {err:.2e} <= 1e-6 of predict, the alignment model loaded {len(loads)} time(s)")
+        s.timed(f"POST /predict with load-time alignment, {MFMF_CASES} cases x 1 fold: {wall:.3f} s, "
+                f"{MFMF_CASES / wall:.1f} cases/s")
+
+    # ---------------------------------------------------------------- 26
+    vae_run = {}  # directory
+
+    def vae_phase():
+        """Main path: one VAE step card vs CPU with the same draws; then
+        train_vae.py with run_vae_train.sh's flags (2 epochs) over the
+        living cases of phase 12's 160, its step rate, and
+        generate_reconstructed_wsi.py from best.npz over every case, read
+        back by MultimodalDataset."""
+        from multimodal_fusion_tpu_torch.cli import generate_reconstructed_wsi as cli_generate
+        from multimodal_fusion_tpu_torch.cli import train_vae as cli_vae
+        from multimodal_fusion_tpu_torch.data import multimodal as multimodal_mod
+        from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
+        from multimodal_fusion_tpu_torch.train import vae as vae_mod
+
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        x = torch.as_tensor(raws[0]["wsi=features"][:VAE_BATCH])
+        g = torch.Generator().manual_seed(26)
+        draws = {"encoder": [torch.rand((VAE_BATCH, 512), generator=g) < 0.9],
+                 "eps": torch.randn((VAE_BATCH, 128), generator=g),
+                 "decoder": [torch.rand((VAE_BATCH, 256), generator=g) < 0.9]}
+        card = VAE(generator=torch.Generator(device=dev).manual_seed(42))
+        host = VAE(generator=torch.Generator().manual_seed(0))
+        host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
+        losses = []
+        for model, d in ((card, dev), (host, "cpu")):
+            loss = vae_loss(x.to(d), *model(x.to(d), train=True, draws=draws))[0]
+            loss.backward()
+            losses.append(float(loss.detach()))
+        errs = grad_errors(card, host)
+        worst = max(errs, key=errs.get)
+        s.check(rel(*losses) <= 1e-5 and errs[worst] <= 1e-4,
+                f"one VAE step of {VAE_BATCH} x {DIM} (run_vae_train.sh's 1024 -> [512, 256] -> 128), "
+                f"card vs CPU with the same draws: loss {losses[0]!r} vs {losses[1]!r}, relative "
+                f"{rel(*losses):.2e} <= 1e-5; gradients worst relative L2 {errs[worst]:.2e} <= 1e-4 ({worst})")
+        del card, host
+
+        td = vae_run["dir"] = Path(tempfile.mkdtemp(prefix="vae_"))
+        store = in_memory_h5(td, [{"wsi=features": r["wsi=features"]} for r in raws])
+        csv_path = td / "dataset.csv"
+        write_csv(csv_path, case_rows(labels))
+        reader = lambda path, fn, *a, **k: fn(store[str(path)])  # noqa: E731
+
+        def writer(path, channel, data, compression=None):
+            store[str(path)]._arrays[h5_path_for_channel(channel)] = np.asarray(data)
+
+        patched = [(multimodal_mod, "read_h5_retrying", reader), (vae_mod, "read_h5_retrying", reader),
+                   (vae_mod, "write_channel", writer)]
+        saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+        for mod, name, fn in patched:
+            setattr(mod, name, fn)
+        try:
+            vae_main_path(td, csv_path, store, cli_vae, cli_generate, MultimodalDataset)
+        finally:
+            for mod, name, fn in saved:
+                setattr(mod, name, fn)
+        s.log("  the HDF5 files were NOT read or written: the dataset and the writer went through an "
+              "in-memory stand-in for h5py.File (the card's machine has no h5py)")
+        no_kernel_launches("phase 26")
+
+    def vae_main_path(td, csv_path, store, cli_vae, cli_generate, MultimodalDataset):
+        ckpt = td / "ckpt"
+        t0 = time.perf_counter()
+        out = cli_vae.main(["--csv_path", str(csv_path), "--data_root_dir", str(td), "--label_filter", "living",
+                            "--batch_size", str(VAE_BATCH), "--epochs", "2", "--lr", "1e-4",
+                            "--latent_dim", "128", "--hidden_dims", "512", "256",
+                            "--checkpoint_dir", str(ckpt), "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        hist = out["history"]
+        s.check(len(hist["val_loss"]) == 2 and np.isfinite(hist["train_loss"] + hist["val_loss"]).all()
+                and (ckpt / "best.npz").exists() and (ckpt / "latest.npz").exists(),
+                f"train_vae.py: 2 epochs, losses finite (train {hist['train_loss']}, val {hist['val_loss']}), "
+                "best.npz and latest.npz written")
+        ds = WSIVAEDataset(csv_path, td, label_filter="living", seed=42)
+        train, _ = split_train_val(ds, val_frac=0.2, seed=42)
+        s.timed(f"train_vae.py, 2 epochs over {len(ds.case_ids)} living cases ({len(ds)} patches after the "
+                f"10% subsample, {len(train)} of them training), the reads and checkpoints included: "
+                f"{wall:.2f} s")
+
+        model = VAE(generator=torch.Generator(device=dev).manual_seed(42))
+        trainer = VAETrainer(model, learning_rate=1e-4)
+        table = torch.as_tensor(train.materialize(), device=dev)
+        rng = np.random.default_rng(42)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def step():
+            rows = torch.as_tensor(rng.integers(0, len(train), VAE_BATCH), device=dev)
+            return trainer._step(table[rows], gen)
+
+        pre["vae_step"] = step
+        for _ in range(2):
+            step()
+        torch.cuda.synchronize()
+        walls = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(10):
+                step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        median = float(np.median(walls))
+        s.timed(f"VAE training step on the device table: median {10 * VAE_BATCH / median:.1f} patches/s over "
+                f"5 windows of 10 steps of {VAE_BATCH} (min {10 * VAE_BATCH / max(walls):.1f}, max "
+                f"{10 * VAE_BATCH / min(walls):.1f}); {1e2 * median:.2f} ms a step")
+        pre["vae_ms"] = 1e2 * median
+
+        t0 = time.perf_counter()
+        done = cli_generate.main(["--csv_path", str(csv_path), "--data_root_dir", str(td),
+                                  "--checkpoint", str(ckpt / "best.npz"), "--latent_dim", "128",
+                                  "--hidden_dims", "512", "256", "--device", "cuda"])
+        wall = time.perf_counter() - t0
+        n_patches = sum(done.values())
+        s.timed(f"generate_reconstructed_wsi.py from best.npz: {len(done)} cases, {n_patches} patches in "
+                f"{wall:.2f} s = {n_patches / wall:.1f} patches/s (batches of 256, the reads and writes "
+                "in memory)")
+        host = VAE(generator=torch.Generator().manual_seed(0))
+        restored, _ = load_state(ckpt / "best.npz", {"model": host.state_dict()})
+        host.load_state_dict(restored["model"])
+        err = 0.0
+        for i in (0, 1, 2):
+            got = store[str(td / f"case_{i:03d}.h5")]["wsi/reconstructed_features"]
+            with torch.no_grad():
+                want = host.reconstruct(torch.as_tensor(store[str(td / f"case_{i:03d}.h5")]["wsi/features"]))
+            err = max(err, float(np.abs(got - want.numpy()).max()))
+        s.check(len(done) == MFMF_CASES and err <= 1e-5,
+                f"{len(done)} cases reconstructed; the card's reconstructions vs a CPU run of best.npz "
+                f"(3 cases): max abs err {err:.2e} <= 1e-5")
+        ds = MultimodalDataset(csv_path, td, ["wsi=reconstructed_features"])
+        same = all(np.array_equal(ds.get_case(c)[0]["wsi=reconstructed_features"],
+                                  store[str(td / f"{c}.h5")]["wsi/reconstructed_features"])
+                   for c in ds.case_ids)
+        s.check(len(ds) == MFMF_CASES and same, f"MultimodalDataset reads wsi=reconstructed_features back "
+                                                f"exactly as written ({len(ds)} cases)")
+
+    # ---------------------------------------------------------------- 27
+    def profile_step(label, step, median_ms):
+        """One step under the profiler: device busy share, device ops,
+        cudaLaunchKernel calls, the longest device and host ops."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        step()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = _device_events(prof)
+        if not events:
+            s.log(f"  {label}: profiler saw no device time: device busy share not measured")
+            return
+        busy_ms = sum(us for _, us in events) / 1e3
+        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+        launches = sum(e.count for e in host if e.key == "cudaLaunchKernel")
+        s.timed(f"{label} under torch.profiler: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms "
+                f"({100 * busy_ms / wall_ms:.1f}% of the profiled wall), {sum(e.count for e, _ in events)} "
+                f"device ops, {launches} cudaLaunchKernel")
+        s.timed(f"estimate: profiled device time over the unprofiled median {median_ms:.2f} ms a step = "
+                f"{100 * busy_ms / median_ms:.1f}% device busy (two runs)")
+        for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:6]:
+            s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:5]:
+            s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
+
+    def pretraining_profile_phase():
+        reset_counts()
+        profile_step(f"one volume step at batch {ALIGN_BATCH}", pre["volume_step"], pre["volume_ms"])
+        profile_step(f"one rank1 'gram' step at batch {ALIGN_BATCH}", pre["rank1_step"], pre["rank1_ms"])
+        profile_step(f"one VAE step at batch {VAE_BATCH}", pre["vae_step"], pre["vae_ms"])
+        no_kernel_launches("phase 27")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -2909,7 +3455,11 @@ def main() -> int:
     s.phase("21. the rest of the zoo, card vs CPU", zoo_phase)
     s.phase("22. main path: build -> cust_omics training, evaluate_fold, predict", cust_omics_phase)
     s.phase("23. where one cust_omics training window's time goes", cust_omics_profile_phase)
-    for d in (mfmf, flag, flag_train, zoo, hg_run):
+    s.phase("24. alignment step, card vs CPU", alignment_step_phase)
+    s.phase("25. main path: alignment training -> survival CLI, predict, serve", alignment_training_phase)
+    s.phase("26. main path: VAE training -> reconstructed features", vae_phase)
+    s.phase("27. where one pretraining step's time goes", pretraining_profile_phase)
+    for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run):
         if "dir" in d:
             shutil.rmtree(d["dir"], ignore_errors=True)
 

@@ -18,8 +18,9 @@ Per-channel input dims are probed from the first case up front (static
 shapes replace the reference's lazily created transfer layers).
 ``--tpu_opts`` keeps its name: a JSON dict merged into the experiment
 config (``device_data``, ``remat``, ...).  An alignment model
-(``--alignment_model_path`` naming a file) is ROADMAP Queue 1 item 14 and
-raises; a path that does not exist is ignored, as the JAX CLI ignores it.
+(``--alignment_model_path``, from ``cli.run_alignment``) aligns the
+``--aligned_channels`` at load time into ``aligned_<channel>`` features;
+a path that does not exist is ignored, as the JAX CLI ignores it.
 """
 
 from __future__ import annotations
@@ -293,9 +294,14 @@ def main(argv=None) -> Path:
     args = parse_args(argv)
     resolve_device(args.device)  # no card without --device cpu: fail before reading data
     seed_everything(args.seed)
+    align_fn = align_channels = None
     if args.alignment_model_path and Path(args.alignment_model_path).exists():
-        raise NotImplementedError("alignment models are not ported yet: ROADMAP Queue 1 item 14")
-    dataset = MultimodalDataset(args.csv_path, args.data_root_dir or ".", channels=args.target_channels)
+        from multimodal_fusion_tpu_torch.utils.results_io import load_alignment_model
+
+        align_channels = dict(args._aligned_map)
+        align_fn = load_alignment_model(args.alignment_model_path, align_channels, args.device)
+    dataset = MultimodalDataset(args.csv_path, args.data_root_dir or ".", channels=args.target_channels,
+                                align_channels=align_channels, alignment_apply_fn=align_fn)
     return run(args, dataset)
 
 

@@ -1,5 +1,6 @@
 """Synthetic fixtures for the port: the survival-dataset layout (CSV +
-per-patient HDF5) and the clustered-blob slides of the build benchmark.
+per-patient HDF5), the per-marker NPZ files of alignment pretraining and
+the clustered-blob slides of the build benchmark.
 
 ``clustered_slide`` draws exactly what ``bench.py:make_fixtures`` draws for
 one slide (same generator calls in the same order), so
@@ -150,3 +151,37 @@ def make_clustered_dataset(
     csv_path = root / "dataset.csv"
     _write_csv(csv_path, rows)
     return csv_path
+
+
+def make_alignment_npz_fixtures(
+    root,
+    n_cores: int = 6,
+    patches_per_core: int = 3,
+    feature_dim: int = 1024,
+    markers: Sequence[str] = TMA_MARKERS,
+    seed: int = 0,
+) -> Dict[str, Path]:
+    """Per-marker NPZ files with aligned keys; returns {marker: path}.
+
+    Keys follow the reference regex ``_block(\\d+)_x(\\d+)_y(\\d+)_patient(\\w+)$``
+    (reference: alignment/alignment_dataset.py:57): each entry is a
+    ``[patches_per_core, feature_dim]`` array keyed by
+    ``<marker>_block<b>_x<x>_y<y>_patient<pid>``.  The generator calls are
+    the JAX package's, so one seed gives the same files in both packages."""
+    root = Path(root)
+    root.mkdir(parents=True, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    cores = [
+        (int(rng.integers(1, 4)), int(rng.integers(0, 20)), int(rng.integers(0, 20)), f"{i:03d}")
+        for i in range(n_cores)
+    ]
+    paths: Dict[str, Path] = {}
+    for mk in markers:
+        data = {}
+        for (b, x, y, pid) in cores:
+            key = f"{mk}_block{b}_x{x}_y{y}_patient{pid}"
+            data[key] = rng.standard_normal((patches_per_core, feature_dim)).astype(np.float32)
+        p = root / f"{mk}.npz"
+        np.savez_compressed(p, **data)
+        paths[mk] = p
+    return paths

@@ -6,15 +6,19 @@ Reference: ``alignment/alignment_model.py:16-126``: per modality a stack of
 MLP match predictor (Linear -> ReLU -> Dropout -> Linear -> Sigmoid) over
 the concatenation of all modalities for the match / mismatch BCE.
 Parameters carry the reference ``state_dict`` names:
-``alignment_layers.<name>.<i>`` and ``mlp_predictor.mlp.{0,3}``.  The
-alignment dataset, trainer and CLI come with alignment pretraining (ROADMAP
-Queue 1 item 14).
+``alignment_layers.<name>.<i>`` and ``mlp_predictor.mlp.{0,3}``; a
+checkpoint written by ``train.checkpoint.save_model`` holds them under
+``params/``, which :func:`infer_alignment_arch` and
+:func:`infer_alignment_markers` read.  The trainer is
+``train.alignment``.
 """
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -59,3 +63,30 @@ class MultiModalAlignmentModel(nn.Module):
     def predict_match(self, fused: torch.Tensor, *, generator: Optional[torch.Generator] = None,
                       train: bool = False) -> torch.Tensor:
         return self.mlp_predictor(fused, generator=generator, train=train)
+
+
+_LAYER_KEY = re.compile(r"params/alignment_layers\.([^.]+)\.(\d+)\.weight$")
+
+
+def _layer_keys(checkpoint_path, data):
+    if data is None:
+        with np.load(checkpoint_path, allow_pickle=False) as opened:
+            return _layer_keys(checkpoint_path, opened)
+    found = [(m, data[k].shape) for k in data.files if (m := _LAYER_KEY.match(k))]
+    if not found:
+        raise ValueError(f"{checkpoint_path} does not look like an alignment model checkpoint "
+                         "(no params/alignment_layers.<marker>.<i>.weight keys)")
+    return found
+
+
+def infer_alignment_arch(checkpoint_path, data=None) -> tuple:
+    """(num_layers, feature_dim) of a saved MultiModalAlignmentModel, read
+    from its ``params/alignment_layers.<marker>.<i>.weight`` keys.  Pass an
+    already-open ``data`` NpzFile to avoid re-reading the file."""
+    found = _layer_keys(checkpoint_path, data)
+    return max(int(m.group(2)) for m, _ in found) + 1, int(found[0][1][0])
+
+
+def infer_alignment_markers(checkpoint_path, data=None) -> list:
+    """Sorted marker names of a saved MultiModalAlignmentModel."""
+    return sorted({m.group(1) for m, _ in _layer_keys(checkpoint_path, data)})

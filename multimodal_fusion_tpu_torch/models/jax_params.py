@@ -1,6 +1,7 @@
-"""Weights of the JAX package's survival models for the port
+"""Weights of the JAX package's models for the port: the survival zoo
 (:func:`survival_params_from_jax`, re-exported by ``models.factory`` and
-``models.svd_gate``).
+``models.svd_gate``), the alignment model (:func:`alignment_params_from_jax`)
+and the VAE (:func:`vae_params_from_jax`).
 
 The port's parameters carry the reference ``state_dict`` names, which
 ``multimodal_fusion_tpu.utils.torch_import`` reads; :data:`JAX_TO_PORT`
@@ -202,3 +203,63 @@ def survival_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
         else:
             out[f"{prefix}.{'weight' if leaf == 'scale' else leaf}"] = torch.from_numpy(arr.copy())
     return out
+
+
+def _flat_jax(state: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
+    """{path tuple: float32 array} of a nested pure dict or a flat dict with
+    tuple or ``/``- or ``.``-joined string paths."""
+    out = {}
+    for key, value in _flatten(state).items():
+        parts = tuple(str(p) for p in key)
+        if len(parts) == 1:
+            parts = tuple(parts[0].replace("/", ".").split("."))
+        out[parts] = np.asarray(value, dtype=np.float32)
+    return out
+
+
+def _linear_state(flat: Dict[Tuple[str, ...], np.ndarray], name_of) -> Dict[str, torch.Tensor]:
+    """Linear layers' ``kernel`` [in, out] / ``bias`` as the port's
+    ``<name>.weight`` [out, in] / ``<name>.bias``; ``name_of`` maps a JAX
+    module path to the port's module name."""
+    out: Dict[str, torch.Tensor] = {}
+    for parts, arr in flat.items():
+        name = name_of(parts[:-1])
+        if parts[-1] == "kernel":
+            out[f"{name}.weight"] = torch.from_numpy(arr.T.copy())
+        else:
+            out[f"{name}.{parts[-1]}"] = torch.from_numpy(arr.copy())
+    return out
+
+
+def alignment_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``MultiModalAlignmentModel`` state dict from the JAX
+    model's parameters (``alignment_layers/<m>/<i>`` ->
+    ``alignment_layers.<m>.<i>``, ``mlp_predictor/fc1|fc2`` ->
+    ``mlp_predictor.mlp.0|3``: the reference ``state_dict`` names)."""
+    predictor = {"fc1": "mlp_predictor.mlp.0", "fc2": "mlp_predictor.mlp.3"}
+
+    def name_of(path):
+        if path[0] == "mlp_predictor":
+            return predictor[path[1]]
+        return ".".join(path)
+
+    return _linear_state(_flat_jax(state), name_of)
+
+
+def vae_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
+    """The port's ``VAE`` state dict from the JAX VAE's parameters: hidden
+    layer i of either half at ``<half>.<half>.<3i>`` (reference
+    Sequential(Linear, GELU, Dropout, ...) indices), the decoder's output
+    layer last in ``decoder.decoder``, ``encoder.fc_mean`` and
+    ``encoder.fc_log_var`` as they are."""
+    flat = _flat_jax(state)
+    n_dec = len({p[2] for p in flat if p[:2] == ("decoder", "layers")})
+
+    def name_of(path):
+        if path[1] == "layers":
+            return f"{path[0]}.{path[0]}.{3 * int(path[2])}"
+        if path == ("decoder", "out"):
+            return f"decoder.decoder.{3 * n_dec - 1}"
+        return ".".join(path)
+
+    return _linear_state(flat, name_of)

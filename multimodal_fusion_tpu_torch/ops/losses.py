@@ -245,6 +245,25 @@ def _pairwise_gram(anchor: torch.Tensor, others: Sequence[torch.Tensor]) -> torc
     return torch.stack(rows, dim=-2)  # [B1, B2, K+1, K+1]
 
 
+# cuSOLVER's batched symmetric eigensolver (``cusolverDnXsyevBatched``,
+# which ``torch.linalg.eigvalsh`` calls for a batch of small matrices on the
+# card) refuses a batch of 2^21 matrix entries or more with
+# CUSOLVER_STATUS_INVALID_VALUE: 16384 8 x 8 matrices pass, 32768 fail (H100,
+# CUDA 12.8, torch 2.11).  The volume loss at batch 512 holds 262144 of them.
+EIGH_BATCH_ENTRIES = 2 ** 20
+
+
+def eigvalsh_chunked(G: torch.Tensor) -> torch.Tensor:
+    """``torch.linalg.eigvalsh`` of [..., K, K] in calls of at most
+    ``EIGH_BATCH_ENTRIES`` matrix entries (the matrices are independent, so
+    the values are those of one call)."""
+    K = G.shape[-1]
+    flat = G.reshape(-1, K, K)
+    step = max(1, EIGH_BATCH_ENTRIES // (K * K))
+    parts = [torch.linalg.eigvalsh(flat[i:i + step]) for i in range(0, flat.shape[0], step)]
+    return torch.cat(parts).reshape(G.shape[:-1])
+
+
 def volume_loss(
     feature_list: Sequence[torch.Tensor],
     tau1: float,
@@ -255,10 +274,12 @@ def volume_loss(
     smallest volume, so logits = -vol / tau1.
 
     The eigenvalue monitor (second output) stays float32, as in the JAX
-    package (the reference escapes to float64 for it; it is logging only)."""
+    package (the reference escapes to float64 for it; it is logging only,
+    so no gradient flows through it)."""
     anchor, others = feature_list[0], list(feature_list[1:])
     G = _pairwise_gram(anchor, others)
-    evals = torch.linalg.eigvalsh(G).clamp_min(0.0)  # [B1, B2, K+1] ascending
+    with torch.no_grad():
+        evals = eigvalsh_chunked(G).clamp_min(0.0)  # [B1, B2, K+1] ascending
     vol = torch.sqrt(torch.linalg.det(G).abs())  # [B1, B2]
 
     B = vol.shape[0]

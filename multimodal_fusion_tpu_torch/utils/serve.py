@@ -7,6 +7,8 @@ this server loads once and stays warm:
 - the fold checkpoints load once at startup, into fold models that are
   built once and kept (in the compute dtype: a bfloat16 copy under
   ``compute_dtype="bfloat16"``);
+- the alignment checkpoint, when the config names one, loads once at
+  startup (``utils.results_io.load_alignment``);
 - eval steps are kept per (fold, drop_prob) in an LRU bounded at four per
   fold, since ``drop_prob`` is client-supplied;
 - requests serialize on a lock (one device, one queue); the HTTP layer is
@@ -63,7 +65,7 @@ class ScoringServer:
         self.folds = list(folds) if folds else discover_folds(self.results_dir)
         if not self.folds:
             raise FileNotFoundError(f"no s_<fold>_checkpoint.npz in {self.results_dir}")
-        self.align = load_alignment(self.configs)
+        self.align = load_alignment(self.configs, device)
         self._lock = threading.Lock()
         self._models = {}
         for fold in self.folds:

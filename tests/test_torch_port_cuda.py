@@ -604,3 +604,60 @@ def test_flagship_bf16_and_drop_prob_on_card(cuda, tmp_path):
     assert float((p16 - p32).abs().max()) <= 4e-2
     assert torch.equal(zero["probabilities"], p32)
     assert torch.equal(ones["logits"], head)
+
+
+def _rel_l2(a, b):
+    return float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("loss_type,svd_impl,lambda2", [("volume", "gram", 0.0),
+                                                        ("rank1", "gram", 0.1)])
+def test_alignment_step_card_matches_cpu(cuda, loss_type, svd_impl, lambda2):
+    """One alignment batch card vs CPU from the same weights, batch and
+    predictor dropout masks (drawn by one CPU generator): loss within 1e-5
+    relative, the alignment layers' gradients within 1e-4 relative L2; no
+    kernel of the port is launched."""
+    from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
+    from multimodal_fusion_tpu_torch.train.alignment import MultiModalAlignmentTrainer
+
+    markers = ["cd3", "cd8", "he"]
+    rng = np.random.default_rng(0)
+    pos = {m: rng.standard_normal((64, 64)).astype(np.float32) / 8 for m in markers}
+    neg = {m: rng.standard_normal((64, 64)).astype(np.float32) / 8 for m in markers}
+    counters = (similarity_rect, knn, attention_fwd, attention_bwd)
+    before = [fn.launches for fn in counters]
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = MultiModalAlignmentModel(markers, feature_dim=64, num_layers=2,
+                                         generator=torch.Generator().manual_seed(0)).to(dev)
+        tr = MultiModalAlignmentTrainer(model, loss_type=loss_type, svd_impl=svd_impl,
+                                        lambda2=lambda2, tau2=0.05, loss2_chunk_size=8)
+        loss, _ = tr._loss(tr._to_device(pos), tr._to_device(neg), torch.Generator().manual_seed(1),
+                           True)
+        out[dev.type] = (loss.detach().cpu(), torch.autograd.grad(loss, tr.params))
+    assert [fn.launches for fn in counters] == before
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    assert float((lc - lh).abs() / lh.abs()) <= 1e-5
+    assert max(_rel_l2(a, b) for a, b in zip(gc, gh)) <= 1e-4
+
+
+def test_vae_step_card_matches_cpu(cuda):
+    """One VAE training step card vs CPU from the same weights, batch and
+    draws (keep masks and noise drawn once on the CPU): loss within 1e-5
+    relative, gradients within 1e-4 relative L2."""
+    from multimodal_fusion_tpu_torch.models.vae import VAE, vae_loss
+
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.standard_normal((256, 1024)).astype(np.float32))
+    g = torch.Generator().manual_seed(3)
+    draws = {"encoder": [torch.rand((256, 512), generator=g) < 0.9],
+             "eps": torch.randn((256, 128), generator=g),
+             "decoder": [torch.rand((256, 256), generator=g) < 0.9]}
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        model = VAE(generator=torch.Generator().manual_seed(0)).to(dev)
+        loss = vae_loss(x.to(dev), *model(x.to(dev), train=True, draws=draws))[0]
+        out[dev.type] = (loss.detach().cpu(), torch.autograd.grad(loss, list(model.parameters())))
+    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    assert float((lc - lh).abs() / lh.abs()) <= 1e-5
+    assert max(_rel_l2(a, b) for a, b in zip(gc, gh)) <= 1e-4

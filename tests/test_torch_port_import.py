@@ -1,6 +1,6 @@
 """The PyTorch port imports neither JAX nor anything of the JAX package, and
-no module of it imports sklearn, pandas or h5py at top level (the card's
-machine has none of them)."""
+no module of it imports sklearn, pandas, h5py or matplotlib at top level
+(the card's machine has none of them)."""
 
 import subprocess
 import sys
@@ -10,7 +10,7 @@ REPO = Path(__file__).resolve().parents[1]
 
 _PROBE = r"""
 import pkgutil, sys
-for blocked in ("jax", "sklearn", "pandas", "h5py"):
+for blocked in ("jax", "sklearn", "pandas", "h5py", "matplotlib", "tensorboard"):
     sys.modules[blocked] = None  # any `import <blocked>` now raises ImportError
 import multimodal_fusion_tpu_torch as port
 names = [m.name for m in pkgutil.walk_packages(port.__path__, port.__name__ + ".")]
@@ -53,6 +53,20 @@ required = {
     "multimodal_fusion_tpu_torch.models.cox",
     "multimodal_fusion_tpu_torch.utils.seeding",
     "multimodal_fusion_tpu_torch.cli.main_survival",
+    "multimodal_fusion_tpu_torch.data.alignment",
+    "multimodal_fusion_tpu_torch.models.alignment",
+    "multimodal_fusion_tpu_torch.train.alignment",
+    "multimodal_fusion_tpu_torch.cli.run_alignment",
+    "multimodal_fusion_tpu_torch.utils.scalars",
+    "multimodal_fusion_tpu_torch.utils.profiling",
+    "multimodal_fusion_tpu_torch.utils.visualization",
+    "multimodal_fusion_tpu_torch.cli.alignment_visualization",
+    "multimodal_fusion_tpu_torch.models.vae",
+    "multimodal_fusion_tpu_torch.data.vae_patches",
+    "multimodal_fusion_tpu_torch.utils.tbevents",
+    "multimodal_fusion_tpu_torch.train.vae",
+    "multimodal_fusion_tpu_torch.cli.train_vae",
+    "multimodal_fusion_tpu_torch.cli.generate_reconstructed_wsi",
 }
 assert required <= set(names), sorted(required - set(names))
 print(len(names))

@@ -25,6 +25,8 @@ from multimodal_fusion_tpu_torch.channels import parse_channels
 from multimodal_fusion_tpu_torch.cli import main_survival as cli
 from multimodal_fusion_tpu_torch.cli import predict as cli_predict
 from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
+from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
+from multimodal_fusion_tpu_torch.train.checkpoint import save_model
 from multimodal_fusion_tpu_torch.utils.seeding import seed_everything
 
 FLAGS = [
@@ -87,8 +89,8 @@ def test_main_survival_writes_the_jax_cli_files(fixture, tmp_path, capsys):
 def test_cli_flags_and_configs_match_jax(fixture, tmp_path):
     """The JAX CLI's flags plus --device, the same parsed channels and
     colon-mapped aligned channels, the same configs; an alignment model
-    that exists raises naming ROADMAP item 14, a path that does not exist
-    is ignored (the run trains)."""
+    that exists is loaded (the run trains, its colon mapping persisted), a
+    path that does not exist is ignored (the run trains)."""
     jflags = {a.dest for a in jcli.build_parser()._actions}
     assert {a.dest for a in cli.build_parser()._actions} == jflags | {"device"}
     argv = FLAGS + ["--aligned_channels", "cd3:tma", "clinical", "--tpu_opts",
@@ -104,14 +106,18 @@ def test_cli_flags_and_configs_match_jax(fixture, tmp_path):
     jargs.aligned_channels = list(jargs._aligned_map)
     assert args._aligned_map == jargs._aligned_map
     assert cli.args_to_configs(args, dims).to_dict() == jcli.args_to_configs(jargs, dims).to_dict()
-    model = tmp_path / "alignment.npz"
-    model.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        cli.main(FLAGS + ["--alignment_model_path", str(model), "--device", "cpu"])
     root, csv_path = fixture
-    out = cli.main(FLAGS + ["--csv_path", str(csv_path), "--data_root_dir", str(root),
-                            "--results_dir", str(tmp_path / "r"), "--device", "cpu",
-                            "--alignment_model_path", str(tmp_path / "absent.npz")])
+    data = ["--csv_path", str(csv_path), "--data_root_dir", str(root), "--device", "cpu"]
+    model = MultiModalAlignmentModel(["tma"], feature_dim=16, num_layers=2,
+                                     generator=torch.Generator().manual_seed(0))
+    ckpt = save_model(tmp_path / "alignment.npz", model)
+    out = cli.main(FLAGS + data + ["--results_dir", str(tmp_path / "a"),
+                                   "--alignment_model_path", str(ckpt),
+                                   "--aligned_channels", "tma=cd3=features:tma"])
+    saved = json.loads((out / "configs_v.json").read_text())["experiment_config"]
+    assert saved["aligned_channels_map"] == {"tma=cd3=features": "tma"}
+    out = cli.main(FLAGS + data + ["--results_dir", str(tmp_path / "r"),
+                                   "--alignment_model_path", str(tmp_path / "absent.npz")])
     assert (out / "summary.csv").exists()
 
 

@@ -19,6 +19,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 from flax import nnx
 
 from multimodal_fusion_tpu import config as jconfig
@@ -35,6 +36,7 @@ from multimodal_fusion_tpu_torch.cli import serve as cli_serve
 from multimodal_fusion_tpu_torch.config import Configs
 from multimodal_fusion_tpu_torch.data.multimodal import MultimodalDataset
 from multimodal_fusion_tpu_torch.data.splits import FoldSplit
+from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
 from multimodal_fusion_tpu_torch.models.factory import ModelFactory
 from multimodal_fusion_tpu_torch.models.jax_params import survival_params_from_jax
 from multimodal_fusion_tpu_torch.train import metrics as tmetrics
@@ -253,6 +255,14 @@ def test_results_io(served, tmp_path):
     configs.experiment_config.alignment_model_path = str(ckpt)
     with pytest.raises(FileNotFoundError, match="alignment_model_path"):
         results_io.load_alignment(configs)
-    ckpt.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="item 14"):
-        results_io.load_alignment(configs)
+    model = MultiModalAlignmentModel(["tma=cd3=features"], feature_dim=32, num_layers=2,
+                                     generator=torch.Generator().manual_seed(0))
+    save_model(ckpt, model)
+    configs.experiment_config.aligned_channels = ["tma=cd3=features"]
+    fn, align = results_io.load_alignment(configs, "cpu")
+    assert align == {"tma=cd3=features": "tma=cd3=features"}
+    x = np.ones((3, 32), np.float32)
+    want = model({"tma=cd3=features": torch.as_tensor(x)})["tma=cd3=features"].detach().numpy()
+    np.testing.assert_array_equal(fn({"tma=cd3=features": x})["tma=cd3=features"], want)
+    raw, _ = results_io.build_dataset(configs, csv_path, root, align=(fn, align)).get_case("patient_000")
+    assert raw["aligned_tma=cd3=features"].shape == raw["tma=cd3=features"].shape
