@@ -58,7 +58,18 @@ port's paths through their entry points:
   the scoring server; the VAE at ``run_vae_train.sh``'s width, one step
   card vs CPU, ``cli/train_vae.py`` over the living cases and
   ``cli/generate_reconstructed_wsi.py`` over every case; a profile of one
-  step of each.
+  step of each;
+- the rest of the build: one 65536-patch slide whose statistics stream
+  over K1 stripes of 1024 rows (the median by bit-pattern refine sweeps),
+  held against K1's whole [65536, 65536] K, with its time by pass and by
+  kernel; K1 at the stripe shape against its plain version; bf16 upload
+  and the sampled statistics at 36864 patches; the streamed build card vs
+  CPU at 6000 patches; ``process_dataset`` with ``file_batch=8`` against
+  ``file_batch=1`` (bench shape, and bucketed 2048-4096-patch slides);
+  the build CLI's ``--cache_similarity`` and ``--rebuild
+  --threshold_median_ratio`` against a CPU rebuild of the same cache; the
+  dense graph card vs CPU.  The HDF5 entry points run on files held in
+  host memory where h5py is missing (``_mem_h5py``).
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
@@ -139,6 +150,11 @@ ALIGN_FLAGS = ["--mismatch_ratio", "1.0", "--seed", "42", "--lambda1", "1.0", "-
                "--batch_size", str(ALIGN_BATCH), "--lr", "1e-4", "--weight_decay", "1e-5",
                "--loss2_chunk_size", "8", "--align_mode", "intersection"]
 VAE_BATCH = 1024
+
+# the build above FULL_STATS_MAX_N: one 65536-patch slide streamed in stripes
+# of 1024 rows, bf16 upload and sampled statistics at 36864 patches, card vs
+# CPU at 6000; the batched build's bucketed slides; the dense graph
+BIG_N, STRIPE, MID_N, CPU_N, BUCKET_FILES, DENSE_N = 65536, 1024, 36864, 6000, 16, 2048
 
 
 def _card_line() -> str:
@@ -407,6 +423,147 @@ class _CaseTable:
         return self._cases[case_id]
 
 
+class _MemDataset:
+    """One dataset of the in-memory HDF5 stand-in (``_mem_h5py``)."""
+
+    def __init__(self, data):
+        self._data = np.asarray(data)
+
+    @property
+    def shape(self):
+        return self._data.shape
+
+    @property
+    def dtype(self):
+        return self._data.dtype
+
+    def __array__(self, dtype=None, copy=None):
+        return self._data if dtype is None else self._data.astype(dtype)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _MemGroup:
+    """One group of the in-memory HDF5 stand-in: slash paths, datasets,
+    subgroups and ``attrs``, as far as the port's HDF5 code uses h5py."""
+
+    def __init__(self):
+        self._items, self.attrs = {}, {}
+
+    def _parent(self, key, create=False):
+        parts = [q for q in key.split("/") if q]
+        node = self
+        for part in parts[:-1]:
+            if part not in node._items:
+                if not create:
+                    raise KeyError(key)
+                node._items[part] = _MemGroup()
+            node = node._items[part]
+            if not isinstance(node, _MemGroup):
+                raise KeyError(key)
+        return node, parts[-1]
+
+    def __contains__(self, key):
+        try:
+            node, last = self._parent(key)
+        except KeyError:
+            return False
+        return last in node._items
+
+    def __getitem__(self, key):
+        node, last = self._parent(key)
+        return node._items[last]
+
+    def __setitem__(self, key, value):
+        node, last = self._parent(key, create=True)
+        node._items[last] = _MemDataset(value)
+
+    def __delitem__(self, key):
+        node, last = self._parent(key)
+        del node._items[last]
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+    def keys(self):
+        return list(self._items)
+
+    def create_group(self, key):
+        node, last = self._parent(key, create=True)
+        node._items[last] = _MemGroup()
+        return node._items[last]
+
+    def require_group(self, key):
+        return self[key] if key in self else self.create_group(key)
+
+    def create_dataset(self, key, data=None, **_):
+        self[key] = data
+        return self[key]
+
+    def visititems(self, fn):
+        def walk(prefix, group):
+            for name, obj in group._items.items():
+                fn(prefix + name, obj)
+                if isinstance(obj, _MemGroup):
+                    walk(prefix + name + "/", obj)
+        walk("", self)
+
+
+def _mem_h5py(store):
+    """A module standing in for ``h5py`` over ``store`` (path -> root
+    group): the card's machine has no h5py, and with this in
+    ``sys.modules`` the port's HDF5 entry points (``process_dataset``, the
+    build CLI, the caches and the rebuild) run unchanged on files held in
+    host memory.  A file it creates is also touched on disk, for the CSV
+    loops' ``os.path.exists``."""
+    import types
+
+    class File(_MemGroup):
+        def __init__(self, path, mode="r"):
+            key = str(path)
+            if mode == "r" and key not in store:
+                raise FileNotFoundError(key)
+            if mode == "w" or key not in store:
+                store[key] = _MemGroup()
+                Path(key).touch()  # for os.path.exists
+            self._items, self.attrs = store[key]._items, store[key].attrs
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def close(self):
+            pass
+
+    mod = types.ModuleType("h5py")
+    mod.File, mod.Group, mod.Dataset = File, _MemGroup, _MemDataset
+    return mod
+
+
+@contextlib.contextmanager
+def _hdf5_files():
+    """(directory, how) for HDF5 files: h5py's own files where h5py is
+    installed, else the in-memory stand-in installed as ``h5py`` for the
+    block's duration."""
+    td = Path(tempfile.mkdtemp(prefix="h5_"))
+    try:
+        import h5py  # noqa: F401
+        stand_in = False
+    except ImportError:
+        stand_in = True
+        sys.modules["h5py"] = _mem_h5py({})
+    try:
+        yield td, ("HDF5 files held in host memory (an in-memory h5py stand-in: no h5py here)"
+                   if stand_in else "h5py files")
+    finally:
+        if stand_in:
+            del sys.modules["h5py"]
+        shutil.rmtree(td, ignore_errors=True)
+
+
 def _mfmf_cases(rng, markers, tabular_dims):
     """``MFMF_CASES`` raw cases as ``MultimodalDataset.get_case`` returns
     them: a WSI bag of 2048-4096 patches x 1024 and its reconstruction
@@ -525,6 +682,7 @@ def main() -> int:
     )
     from multimodal_fusion_tpu_torch.device import resolve_device
     from multimodal_fusion_tpu_torch.hypergraph import build
+    from multimodal_fusion_tpu_torch.io.h5io import open_h5_retrying, read_hypergraph_group
     from multimodal_fusion_tpu_torch.data.alignment import TMANpzAlignedWithNegDataset
     from multimodal_fusion_tpu_torch.data.vae_patches import WSIVAEDataset, split_train_val
     from multimodal_fusion_tpu_torch.io.fixtures import (
@@ -3432,6 +3590,444 @@ def main() -> int:
         profile_step(f"one VAE step at batch {VAE_BATCH}", pre["vae_step"], pre["vae_ms"])
         no_kernel_launches("phase 27")
 
+    # ---------------------------------------------------------------- 28
+    big = {}  # the 65536-patch slide, read by phase 29
+
+    def blockwise_phase():
+        """Main path: one 65536-patch slide above FULL_STATS_MAX_N with
+        save_similarity=False, whose statistics stream over K1 stripes
+        (the stats pass, then the median's refine sweeps), against the whole
+        [N, N] K of K1 on the card."""
+        n = BIG_N
+        slide = clustered_slide(np.random.default_rng(28), n, N_TMA, DIM)
+        sweeps = {"calls": 0, "launches": 0, "s": 0.0, "stats_s": 0.0}
+        level_pass, stats_pass = build._median_level_pass, build._blockwise_similarity_stats
+
+        def timed_pass(fn, key):
+            def run(*args, **kw):  # K1's launches and the wall of each pass
+                torch.cuda.synchronize()
+                t0, before = time.perf_counter(), similarity_rect.launches
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                sweeps[key] += time.perf_counter() - t0
+                if key == "s":
+                    sweeps["calls"] += 1
+                    sweeps["launches"] += similarity_rect.launches - before
+                return out
+            return run
+
+        build._median_level_pass = timed_pass(level_pass, "s")
+        build._blockwise_similarity_stats = timed_pass(stats_pass, "stats_s")
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # earlier phases' live tensors
+        t0 = time.perf_counter()
+        try:
+            res = build.process_arrays(*slide, **params, save_similarity=False, device=dev)
+        finally:
+            build._median_level_pass, build._blockwise_similarity_stats = level_pass, stats_pass
+        wall = time.perf_counter() - t0
+        add_main_path_counts()
+        peak = torch.cuda.max_memory_allocated() - held
+        stripes = -(-n // STRIPE)
+        stats_launches = similarity_rect.launches - sweeps["launches"]
+        big["launches"] = similarity_rect.launches
+        s.timed(f"{n}-patch slide, blockwise statistics: {wall:.3f} s ({n / wall:.1f} patches/s), "
+                f"K1 launches {similarity_rect.launches}: stats pass {stats_launches}, "
+                f"{sweeps['calls']} refine sweeps {sweeps['launches']}; peak device memory of the "
+                f"build {peak / 2**30:.2f} GiB (above the {held / 2**30:.2f} GiB earlier phases hold)")
+        s.check(stats_launches == stripes and sweeps["launches"] == stripes * sweeps["calls"],
+                f"stats pass {stats_launches} == {stripes} stripes of {STRIPE} rows, each sweep "
+                f"{stripes} stripes")
+        s.check(peak < n * n * 4, f"peak device memory {peak / 2**30:.2f} GiB < the whole K's "
+                                  f"{n * n * 4 / 2**30:.0f} GiB")
+        got = res["host"]["K_stats"]
+        f = torch.as_tensor(slide[0], device=dev)
+        p = torch.as_tensor(slide[1], device=dev)
+        # where the slide's time goes: the two streamed passes (synchronised
+        # above), the rest of the build, and one stats stripe's operations
+        stripe = similarity_rect(f[:STRIPE], p[:STRIPE], f, p)
+        onehot = torch.zeros((n, NUM_SUPER), device=dev)
+        onehot[:, 0] = 1.0
+        bounds = build._bin_bounds(0, build._MED_L1_SHIFT, build._MED_FANOUT, dev)
+        idx = torch.bucketize(stripe.view(torch.int32), bounds, out_int32=True, right=True).reshape(-1)
+        ops = {
+            "K1": lambda: similarity_rect(f[:STRIPE], p[:STRIPE], f, p),
+            "var_mean": lambda: torch.var_mean(stripe, correction=0),
+            "aminmax": lambda: torch.aminmax(stripe),
+            "one-hot GEMM": lambda: stripe @ onehot,
+            "bucketize": lambda: torch.bucketize(stripe.view(torch.int32), bounds, out_int32=True, right=True),
+            "bincount with one counter a slot": lambda: torch.bincount(idx, minlength=bounds.numel() + 1),
+            "count (bucketize + bincount over 32 lanes a slot)": lambda: build._count_bins(stripe, bounds),
+        }
+        op_ms = {name: s.cuda_ms(fn, iters=10) for name, fn in ops.items()}
+        count_ms = op_ms["count (bucketize + bincount over 32 lanes a slot)"]
+        del stripe, idx
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        build.kmeans(f, NUM_SUPER, torch.Generator(device=dev).manual_seed(SEED), n_init=build.N_INIT)
+        torch.cuda.synchronize()
+        km_s = time.perf_counter() - t0
+        reductions = op_ms["var_mean"] + op_ms["aminmax"] + op_ms["one-hot GEMM"] + count_ms
+        by_kernel = s.device_ms(
+            lambda: build.process_arrays(*slide, **params, save_similarity=False, device=dev), reps=1)
+        if by_kernel:
+            groups = {"K1": ("sim_kernel",), "GEMM (cuBLAS)": ("gemm", "Kernel2", "cutlass"),
+                      "bucketize": ("searchsorted", "bucketize"), "bincount": ("histogram", "Histogram"),
+                      "reductions": ("reduce_kernel",)}
+            share = dict.fromkeys(list(groups) + ["other"], 0.0)
+            for name, ms in by_kernel.items():
+                g = next((g for g, keys in groups.items() if any(k in name for k in keys)), "other")
+                share[g] += ms
+            busy = sum(share.values())
+            s.timed(f"{n}-patch slide's device time by kernel (profiled build): "
+                    + ", ".join(f"{g} {ms:.1f} ms" for g, ms in share.items())
+                    + f"; {busy:.1f} ms busy = {100 * busy / (wall * 1e3):.1f}% of the unprofiled "
+                      f"{wall * 1e3:.1f} ms wall (an estimate: two runs)")
+            for name, ms in sorted(by_kernel.items(), key=lambda kv: kv[1], reverse=True)[:6]:
+                s.timed(f"  device {ms:9.2f} ms  {name[:90]}")
+        s.timed(f"{n}-patch slide's {wall:.3f} s: stats pass {sweeps['stats_s']:.3f} s ({stripes} "
+                f"stripes), {sweeps['calls']} refine sweeps {sweeps['s']:.3f} s, the rest (KMeans, "
+                f"cross similarity, KNN, host) {wall - sweeps['stats_s'] - sweeps['s']:.3f} s, of which "
+                f"the super-patch KMeans alone (timed again) {km_s:.3f} s")
+        s.timed(f"one stats stripe [{STRIPE}, {n}]: " + ", ".join(f"{k} {v:.4f} ms" for k, v in op_ms.items())
+                + f"; the reductions {reductions:.4f} ms = {100 * reductions / (reductions + op_ms['K1']):.1f}% "
+                  f"of a stats stripe, the count {count_ms:.4f} ms = "
+                  f"{100 * count_ms / (count_ms + op_ms['K1']):.1f}% of a refine stripe")
+        check_whole_k(f"{n}-patch slide", got, res["host"], f, p, False)
+        big["slide"] = (f, p)
+
+    def check_whole_k(label, got, host, f, p, bf16):
+        """The streamed statistics against K1's whole K of the same slide:
+        minimum, maximum and median bit-equal, mean, std and intra_mean
+        within 1e-5 relative."""
+        K = similarity_rect(f, p, f, p, 1.0, 1.0, bf16)
+        want = build._matrix_stats_dev(K).cpu().numpy()
+        labels = torch.as_tensor(host["labels"], device=dev)
+        onehot = torch.zeros((K.shape[0], NUM_SUPER), device=dev).scatter_(1, labels[:, None], 1.0)
+        s_cc = torch.sum(onehot * (K @ onehot), dim=0)
+        diag_c = onehot.T @ torch.diagonal(K)
+        counts = onehot.sum(0)
+        pairs = counts * counts - counts
+        intra = float(torch.sum(torch.where(pairs > 0, (s_cc - diag_c) / pairs.clamp_min(1), 0.0))
+                      / torch.sum(pairs > 0))
+        del K, onehot
+        rel = np.abs(np.array([got[0] - want[0], got[1] - want[1], host["intra_mean"] - intra])) / \
+            np.abs(np.array([want[0], want[1], intra]))
+        s.log(f"  {label}: streamed [mean, std, min, max, median] {got.tolist()}, whole K "
+              f"{want.tolist()}, intra_mean {float(host['intra_mean'])} / {intra}")
+        s.check(got[2] == want[2] and got[3] == want[3] and got[4] == want[4],
+                f"{label}: min, max and median bit-equal to the whole K's")
+        s.check(bool((rel <= 1e-5).all()), f"{label}: mean, std, intra_mean within "
+                                           f"{rel.max():.2e} <= 1e-5 relative of the whole K's")
+
+    # ---------------------------------------------------------------- 29
+    def stripe_phase():
+        """K1 at the stripe shape [1024, 65536, 1024] alone, against its
+        plain version on the same rows, timed beside torch.matmul's dot."""
+        f, p = big["slide"]
+        rf, rp = f[:STRIPE], p[:STRIPE]
+        out = similarity_rect(rf, rp, f, p)
+        again = similarity_rect(rf, rp, f, p)
+        plain = similarity_rect_plain(rf, rp, f, p)
+        err = float((out - plain).abs().max())
+        s.check(bool(torch.equal(out, again)), "K1 stripe: two launches bit-identical")
+        s.check(err <= 1e-5, f"K1 stripe [{STRIPE},{BIG_N},{DIM}]: max abs err {err:.3e} <= 1e-5")
+        del out, again, plain
+        ms = s.cuda_ms(lambda: similarity_rect(rf, rp, f, p), iters=10)
+        plain_ms = s.cuda_ms(lambda: similarity_rect_plain(rf, rp, f, p), iters=5, warmup=1)
+        lib_ms = s.cuda_ms(lambda: torch.matmul(rf, f.T), iters=10)
+        bound, bound_by = _similarity_bound_ms(STRIPE, BIG_N, DIM, 2, 4)
+        s.timed(f"K1 stripe [{STRIPE},{BIG_N},{DIM}] f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.matmul feature dot {lib_ms:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+                f"{big['launches']} launches on the {BIG_N}-patch slide")
+        s.kernels["similarity_stripe"] = {
+            "name": "similarity_stripe", "route": "cuda",
+            "source": "multimodal_fusion_tpu_torch/csrc/similarity.cu",
+            "replaces": "multimodal_fusion_tpu/ops/pallas_similarity.py:56",
+            "launches": big["launches"], "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib_ms,
+        }
+        big.clear()
+
+    # ---------------------------------------------------------------- 30
+    def large_modes_phase():
+        """The same check in bf16 upload (streamed) and in the sampled mode
+        (statistics of the 2048-point subsample, held bit-equal to those of
+        K1 on the subsample's rows), at a smaller N."""
+        n = MID_N
+        slide = clustered_slide(np.random.default_rng(30), n, N_TMA, DIM)
+        reset_counts()
+        t0 = time.perf_counter()
+        res = build.process_arrays(*slide, **params, save_similarity=False, upload_dtype="bfloat16",
+                                   device=dev)
+        wall = time.perf_counter() - t0
+        add_main_path_counts()
+        s.timed(f"{n}-patch slide, bf16 upload, blockwise: {wall:.3f} s, "
+                f"K1 launches {similarity_rect.launches}")
+        f_bf = torch.as_tensor(slide[0], device=dev).to(torch.bfloat16)
+        p = torch.as_tensor(slide[1], device=dev)
+        check_whole_k(f"{n}-patch slide, bf16 upload", res["host"]["K_stats"], res["host"], f_bf, p, True)
+
+        large_n_stats = build.LARGE_N_STATS
+        build.LARGE_N_STATS = "sampled"
+        reset_counts()
+        t0 = time.perf_counter()
+        try:
+            res = build.process_arrays(*slide, **params, save_similarity=False, device=dev)
+        finally:
+            build.LARGE_N_STATS = large_n_stats
+        wall = time.perf_counter() - t0
+        add_main_path_counts()
+        s.timed(f"{n}-patch slide, sampled statistics: {wall:.3f} s, K1 launches "
+                f"{similarity_rect.launches}")
+        s.check(similarity_rect.launches == 1, "sampled mode: K1 once, on the subsample")
+        sel = build._sample_rows([n], 2048, dev)[0]
+        f = torch.as_tensor(slide[0], device=dev)
+        want = build._matrix_stats_dev(similarity_rect(f[sel], p[sel], f[sel], p[sel])).cpu().numpy()
+        s.check(np.array_equal(res["host"]["K_stats"], want),
+                f"sampled K_stats {res['host']['K_stats'].tolist()} equal those of K1 on the "
+                f"2048 subsample rows {want.tolist()}")
+
+    # ---------------------------------------------------------------- 31
+    def blockwise_cpu_phase():
+        """Card against CPU with FULL_STATS_MAX_N lowered to 4096: a
+        6000-patch slide streamed on both, the CPU from the card's kmeans++
+        draws."""
+        n = CPU_N
+        slide = clustered_slide(np.random.default_rng(31), n, N_TMA, DIM)
+        max_n = build.FULL_STATS_MAX_N
+        build.FULL_STATS_MAX_N = 4096
+        try:
+            reset_counts()
+            card = build.process_arrays(*slide, **params, save_similarity=False, device=dev)
+            add_main_path_counts()
+            s.check(similarity_rect.launches > -(-n // STRIPE),
+                    f"{n}-patch slide streamed: {similarity_rect.launches} K1 launches")
+            h = card["host"]
+            g1, g2, g3 = build._generators(SEED, dev)
+            nodes = torch.cat([torch.as_tensor(h["sp_feats"], device=dev),
+                               torch.as_tensor(slide[2], device=dev)])
+            init = {
+                "super": kmeans_plus_plus_init(torch.as_tensor(slide[0], device=dev), NUM_SUPER, g1, 10).cpu(),
+                "group": kmeans_plus_plus_init(torch.as_tensor(h["sim"], device=dev), NUM_GROUPS, g2, 10).cpu(),
+                "hyperedge": kmeans_plus_plus_init(nodes, NUM_HYPEREDGES, g3, 10).cpu(),
+            }
+            t0 = time.perf_counter()
+            cpu = build.process_arrays(*slide, **params, save_similarity=False, device="cpu",
+                                       init_centers=init)["host"]
+            s.log(f"  CPU build of the {n}-patch slide: {time.perf_counter() - t0:.1f} s (host)")
+        finally:
+            build.FULL_STATS_MAX_N = max_n
+        ari = _ari(cpu["labels"], h["labels"])
+        kerr = float(np.abs(cpu["K_stats"] - h["K_stats"]).max())
+        ierr = float(abs(cpu["intra_mean"] - h["intra_mean"]))
+        s.check(ari >= 0.99, f"{n}-patch streamed build, labels card vs CPU: ARI {ari:.4f} >= 0.99")
+        # K within 1e-5 elementwise moves each statistic by at most about that much
+        s.check(kerr <= 1e-5 and ierr <= 1e-5,
+                f"{n}-patch streamed K_stats and intra_mean card vs CPU: max abs diff "
+                f"{max(kerr, ierr):.2e} <= 1e-5")
+
+    # ---------------------------------------------------------------- 32
+    def batched_phase():
+        """Main path: process_dataset with file_batch=8 against file_batch=1
+        on phase 4's slides, windows in turns in this one run; then with
+        bucket_patches on 16 slides of 2048-4096 patches (phase 22's
+        draw).  Files of each side are compared slide by slide."""
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+
+        with _hdf5_files() as (td, how):
+            s.log(f"  {how}")
+            csv_path = make_clustered_dataset(td / "bench", N_FILES, N_PATCHES, N_TMA, DIM, seed=0)
+            import h5py
+
+            rng = np.random.default_rng(22)
+            rows = []
+            (td / "bucket").mkdir()
+            for i in range(BUCKET_FILES):
+                feats, pos, tma = clustered_slide(rng, int(rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1)),
+                                                  N_TMA, DIM)
+                path = td / "bucket" / f"case_{i}.h5"
+                with h5py.File(path, "w") as fh:
+                    fh["wsi/features"], fh["wsi/positions"], fh["tma/features"] = feats, pos, tma
+                rows.append({"patient_id": str(i), "case_id": f"case_{i}", "label": "living",
+                             "h5_file_path": path.name})
+            write_csv(td / "bucket" / "dataset.csv", rows)
+            for label, root, csv_p, extra in (
+                ("bench shape", td / "bench", csv_path, {}),
+                ("2048-4096 patches, bucket_patches 4096", td / "bucket", td / "bucket" / "dataset.csv",
+                 {"bucket_patches": 4096}),
+            ):
+                def run(fb):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    stats, summary = build.process_dataset(csv_p, root, **params, save_similarity=False,
+                                                           file_batch=fb, device=dev, **extra)
+                    wall = time.perf_counter() - t0
+                    s.check(not any("error" in st for st in stats), f"{label}, file_batch={fb}: no errors")
+                    return wall, summary["total_patches"], {
+                        st["case_id"]: read_hypergraph_group(root / st["h5_path"]) for st in stats}
+
+                run(8)  # warm-up
+                walls = {1: [], 8: []}
+                outs = {}
+                for fb in (1, 8, 8, 1, 1, 8) if not extra else (1, 8, 8, 1):
+                    reset_counts()
+                    wall, patches, outs[fb] = run(fb)
+                    add_main_path_counts()
+                    walls[fb].append(wall)
+                    files = len(outs[fb])
+                    s.check(similarity_rect.launches == files,
+                            f"{label}, file_batch={fb}: K1 once a slide ({similarity_rect.launches})")
+                pps = {fb: patches / float(np.median(w)) for fb, w in walls.items()}
+                s.timed(f"{label}: file_batch=1 {pps[1]:.1f} patches/s, file_batch=8 {pps[8]:.1f} "
+                        f"patches/s (medians of {len(walls[1])} windows in turns; walls "
+                        f"{[round(w, 4) for w in walls[1]]} / {[round(w, 4) for w in walls[8]]} s)")
+                for fb in (1, 8) if not extra else ():
+                    with profile(activities=[ProfilerActivity.CPU]) as prof:
+                        run(fb)
+                    launches = sum(e.count for e in prof.key_averages()
+                                   if e.device_type == DeviceType.CPU and e.key == "cudaLaunchKernel")
+                    s.timed(f"{label}, file_batch={fb}: {launches / files:.0f} cudaLaunchKernel a slide, "
+                            f"K1 1 a slide")
+                worst_ari, same_stats, same_super = 1.0, True, True
+                for case, a in outs[1].items():
+                    b = outs[8][case]
+                    worst_ari = min(worst_ari, _ari(a["group_labels"], b["group_labels"]))
+                    ka = a["__stats__"]["wsi_aggregation"]["wsi_similarity_matrix_stats"]
+                    kb = b["__stats__"]["wsi_aggregation"]["wsi_similarity_matrix_stats"]
+                    same_stats &= ka == kb
+                    rows_a = np.sort(a["wsi_super/features"], axis=0)
+                    rows_b = np.sort(b["wsi_super/features"], axis=0)
+                    same_super &= bool(np.abs(rows_a - rows_b).max() <= 1e-4)
+                s.check(same_stats, f"{label}: K_stats of every slide equal, file_batch 8 vs 1")
+                s.check(same_super and worst_ari >= 0.99,
+                        f"{label}: super-patch means equal as sets within 1e-4 (the same "
+                        f"super-patch labels), group labels ARI >= {worst_ari:.4f} >= 0.99")
+
+    # ---------------------------------------------------------------- 33
+    def cache_rebuild_phase():
+        """Main path: the build CLI on 3 bench-shape slides, then
+        --cache_similarity (the cached K against K1's K, bit for bit), then
+        --rebuild --threshold_median_ratio 1.0, held against a CPU rebuild
+        of the same cache from the card's draws."""
+        from multimodal_fusion_tpu_torch.cli import preprocess_hypergraph as cli_build
+
+        with _hdf5_files() as (td, how):
+            s.log(f"  {how}")
+            csv_path = make_clustered_dataset(td, 3, N_PATCHES, N_TMA, DIM, seed=33)
+            base = ["--csv_path", str(csv_path), "--data_root_dir", str(td), "--device", "cuda",
+                    "--num_wsi_super_patches", str(NUM_SUPER), "--num_groups", str(NUM_GROUPS),
+                    "--hypergraph_k", str(K), "--num_hyperedges", str(NUM_HYPEREDGES)]
+            reset_counts()
+            t0 = time.perf_counter()
+            cli_build.main(base + ["--no_save_similarity"])
+            cached = cli_build.main(base + ["--cache_similarity"])
+            t1 = time.perf_counter()
+            rebuilt = cli_build.main(base + ["--rebuild", "--threshold_median_ratio", "1.0"])
+            t2 = time.perf_counter()
+            add_main_path_counts()
+            s.timed(f"CLI: build + --cache_similarity of 3 x {N_PATCHES} patches {t1 - t0:.3f} s, "
+                    f"--rebuild {t2 - t1:.3f} s; K1 launches {similarity_rect.launches}")
+            s.check(not any("error" in r for r in cached + rebuilt), "cache and rebuild: no errors")
+            s.check(similarity_rect.launches == 6, "K1: once a slide in the build, once in the cache")
+            for i in range(3):
+                h5 = td / f"case_{i}.h5"
+                feats, pos = build.load_wsi_data(h5)
+                tma = build.load_tma_data(h5)
+                group = read_hypergraph_group(h5)
+                f, p = torch.as_tensor(feats, device=dev), torch.as_tensor(pos, device=dev)
+                K_card = similarity_rect(f, p, f, p).cpu().numpy()
+                s.check(np.array_equal(group["similarity/wsi_internal"], K_card),
+                        f"case_{i}: cached K equals K1's K bit for bit")
+                thr = group["__stats__"]["hypergraph"]["threshold"]
+                s.check(bool((group["edge_weights"] >= thr).all()),
+                        f"case_{i}: every kept weight >= the threshold {thr:.6f} "
+                        f"({group['edge_weights'].size} of "
+                        f"{group['__stats__']['hypergraph']['num_edges']} edges)")
+                # the card's draws of the rebuild's three stages, for a CPU rebuild
+                gen = lambda: torch.Generator(device=dev).manual_seed(SEED)  # noqa: E731
+                nodes = np.concatenate([group["wsi_super/features"], tma])
+                init = {
+                    "super": kmeans_plus_plus_init(f, NUM_SUPER, gen(), 10).cpu(),
+                    "group": kmeans_plus_plus_init(torch.as_tensor(group["similarity/wsi_tma"], device=dev),
+                                                   NUM_GROUPS, gen(), 10).cpu(),
+                    "hyperedge": kmeans_plus_plus_init(torch.as_tensor(nodes, device=dev),
+                                                       NUM_HYPEREDGES, gen(), 10).cpu(),
+                }
+                cpu_h5 = td / f"cpu_{i}.h5"
+                with open_h5_retrying(cpu_h5, "w") as dst:
+                    for key, arr in (("wsi/features", feats), ("wsi/positions", pos), ("tma/features", tma),
+                                     ("hypergraph/similarity/wsi_internal", K_card)):
+                        dst.create_dataset(key, data=arr)
+                build.rebuild_hypergraph_from_similarity(
+                    cpu_h5, NUM_SUPER, NUM_GROUPS, K, NUM_HYPEREDGES, 1.0, SEED, device="cpu",
+                    init_centers=init)
+                want = read_hypergraph_group(cpu_h5)
+                # a patch whose cluster the two float orders decide differently
+                # moves two super-patch means; the super-patch labels (at
+                # convergence, each patch's nearest mean) are held by ARI as
+                # phase 4 holds them, the other rows' edge weights to 1e-5
+                def nearest(sp):
+                    return torch.cdist(f, torch.as_tensor(sp, device=dev)).argmin(1).cpu().numpy()
+
+                sp_ari = _ari(nearest(want["wsi_super/features"]), nearest(group["wsi_super/features"]))
+                ari = _ari(want["group_labels"], group["group_labels"])
+                row_err = np.abs(want["wsi_super/features"] - group["wsi_super/features"]).max(axis=1)
+                same = np.concatenate([row_err <= 1e-4, np.ones(len(tma), bool)])
+                wc = dict(zip(map(tuple, want["edge_index"].T.tolist()), want["edge_weights"]))
+                wk = dict(zip(map(tuple, group["edge_index"].T.tolist()), group["edge_weights"]))
+                jac = len(wc.keys() & wk.keys()) / max(len(wc.keys() | wk.keys()), 1)
+                w_err = max((abs(wc[e] - wk[e]) for e in wc.keys() & wk.keys() if same[e[0]] and same[e[1]]),
+                            default=0.0)
+                s.check(sp_ari >= 0.99 and ari >= 0.99 and jac >= 0.99 and w_err <= 1e-5,
+                        f"case_{i}: rebuild card vs CPU: super-patch labels ARI {sp_ari:.4f} >= 0.99 "
+                        f"({int((row_err > 1e-4).sum())} means apart by more than 1e-4, largest "
+                        f"{row_err.max():.2e}), group ARI {ari:.4f} >= 0.99, edge Jaccard {jac:.4f} >= "
+                        f"0.99, weights of the other rows' edges {w_err:.2e} <= 1e-5")
+
+    # ---------------------------------------------------------------- 34
+    def dense_graph_phase():
+        """Main path: build_hypergraph_data at 2048 points on the card (K1)
+        against the CPU."""
+        from multimodal_fusion_tpu_torch.hypergraph.dense_graph import build_hypergraph_data
+
+        feats, pos, _ = clustered_slide(np.random.default_rng(34), DENSE_N, 1, DIM)
+        reset_counts()
+        t0 = time.perf_counter()
+        card = build_hypergraph_data(feats, pos, threshold_median_ratio=1.0, device=dev)
+        wall = time.perf_counter() - t0
+        add_main_path_counts()
+        s.timed(f"build_hypergraph_data at {DENSE_N} points: {wall * 1e3:.2f} ms, "
+                f"{card['edge_index'].shape[1]} edges, K1 launches {similarity_rect.launches}")
+        cpu = build_hypergraph_data(feats, pos, threshold_median_ratio=1.0, device="cpu")
+        from multimodal_fusion_tpu_torch.ops.similarity import median_offdiag
+
+        # edges as [N, N] masks (row-major order on both sides)
+        n = DENSE_N
+        on_card = np.zeros((n, n), bool)
+        on_card[tuple(card["edge_index"])] = True
+        on_cpu = np.zeros((n, n), bool)
+        on_cpu[tuple(cpu["edge_index"])] = True
+        K_cpu = similarity_rect_plain(*(torch.as_tensor(x) for x in (feats, pos, feats, pos))).numpy()
+        thr = float(median_offdiag(torch.as_tensor(K_cpu)))
+        differ = on_card != on_cpu
+        near = bool((np.abs(K_cpu[differ] - thr) <= 2e-5).all())
+        s.check(near and differ.sum() <= 1e-3 * on_cpu.sum(),
+                f"dense graph card vs CPU: {int(differ.sum())} of {int(on_cpu.sum())} edges differ, all "
+                f"within 2e-5 of the threshold {thr:.6f} (K within 1e-5 of the plain version on each side)")
+        wk = np.zeros((n, n), np.float32)
+        wk[tuple(card["edge_index"])] = card["edge_attr"]
+        wc = np.zeros((n, n), np.float32)
+        wc[tuple(cpu["edge_index"])] = cpu["edge_attr"]
+        both = on_card & on_cpu
+        w_err = float(np.abs(wk[both] - wc[both]).max()) if both.any() else 0.0
+        p_err = float(np.abs(card["pooled_feature"] - cpu["pooled_feature"]).max())
+        s.check(w_err <= 1e-5 and p_err <= 1e-6,
+                f"dense graph weights {w_err:.2e} <= 1e-5, pooled feature {p_err:.2e} <= 1e-6")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -3459,6 +4055,13 @@ def main() -> int:
     s.phase("25. main path: alignment training -> survival CLI, predict, serve", alignment_training_phase)
     s.phase("26. main path: VAE training -> reconstructed features", vae_phase)
     s.phase("27. where one pretraining step's time goes", pretraining_profile_phase)
+    s.phase(f"28. main path: one {BIG_N}-patch slide, blockwise statistics", blockwise_phase)
+    s.phase(f"29. K1 stripe [{STRIPE},{BIG_N},{DIM}] vs plain", stripe_phase)
+    s.phase("30. main path: bf16 upload and sampled statistics", large_modes_phase)
+    s.phase(f"31. blockwise build card vs CPU at {CPU_N} patches", blockwise_cpu_phase)
+    s.phase("32. main path: the batched build, file_batch=8 vs 1", batched_phase)
+    s.phase("33. main path: build CLI --cache_similarity, --rebuild", cache_rebuild_phase)
+    s.phase("34. main path: the dense graph", dense_graph_phase)
     for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run):
         if "dir" in d:
             shutil.rmtree(d["dir"], ignore_errors=True)
@@ -3470,13 +4073,18 @@ def main() -> int:
                 s.kernels[name]["routes"] = {
                     r: {"launches": main_path_routes[name][r], "ms": route_ms[name][r]} for r in ROUTES}
         s.check(launches >= 1, f"{name} kernel launched on the main path ({launches})")
-    missing = set(counters) - set(s.kernels)
+    # K1 at the stripe shape: its launches are those of the 65536-patch slide (phase 28)
+    entries = list(counters) + ["similarity_stripe"]
+    if "similarity_stripe" in s.kernels:
+        s.check(s.kernels["similarity_stripe"]["launches"] >= 1,
+                f"similarity_stripe launched on the main path ({s.kernels['similarity_stripe']['launches']})")
+    missing = set(entries) - set(s.kernels)
     if missing:
         s.failures.append(f"no measurements for {sorted(missing)}")
     if s.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(s.failures), file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": [s.kernels[name] for name in counters]}))
+    print(json.dumps({"kernels": [s.kernels[name] for name in entries]}))
     print(s.card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

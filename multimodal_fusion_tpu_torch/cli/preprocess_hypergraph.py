@@ -6,7 +6,9 @@ Same flags as ``multimodal_fusion_tpu.cli.preprocess_hypergraph`` plus
     python -m multimodal_fusion_tpu_torch.cli.preprocess_hypergraph \\
         --csv_path D/dataset.csv --data_root_dir D --no_save_similarity
 
-Modes this slice does not port yet exit with an error naming their
+``--cache_similarity`` writes the similarity caches into built files,
+``--rebuild`` re-tunes built files from them (``--threshold_median_ratio``
+drops the weaker edges).  ``--mesh_data > 1`` exits with an error naming its
 ROADMAP.md item.
 """
 
@@ -15,21 +17,11 @@ from __future__ import annotations
 import argparse
 import json
 
-from multimodal_fusion_tpu_torch.hypergraph.build import process_dataset
-
-
-def _not_ported(args):
-    """(flag, ROADMAP.md Queue 1 item) of the first mode asked for that this
-    slice does not port, else None."""
-    asked = [
-        ("--cache_similarity", args.cache_similarity, "similarity caches and rebuild"),
-        ("--rebuild", args.rebuild, "similarity caches and rebuild"),
-        ("--threshold_median_ratio", args.threshold_median_ratio is not None,
-         "similarity caches and rebuild"),
-        ("--mesh_data", (args.mesh_data or 0) > 1, "mesh"),
-        ("--file_batch > 1", args.file_batch > 1, "batched build"),
-    ]
-    return next(((flag, item) for flag, on, item in asked if on), None)
+from multimodal_fusion_tpu_torch.hypergraph.build import (
+    batch_cache_similarity,
+    batch_rebuild_hypergraph,
+    process_dataset,
+)
 
 
 def build_parser():
@@ -62,10 +54,29 @@ def build_parser():
 def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        flag, item = missing
-        parser.error(f"{flag} is not ported to PyTorch yet: see ROADMAP.md, Queue 1, '{item}'")
+    if args.cache_similarity:
+        out = batch_cache_similarity(
+            args.csv_path, args.data_root_dir,
+            lambda_h=args.lambda_h, lambda_g=args.lambda_g, device=args.device,
+        )
+        print(f"cached similarity for {len(out)} files")
+        return out
+    if args.rebuild:
+        out = batch_rebuild_hypergraph(
+            args.csv_path,
+            args.data_root_dir,
+            num_wsi_super_patches=args.num_wsi_super_patches,
+            num_groups=args.num_groups,
+            hypergraph_k=args.hypergraph_k,
+            num_hyperedges=args.num_hyperedges,
+            threshold_median_ratio=args.threshold_median_ratio,
+            seed=args.seed,
+            device=args.device,
+        )
+        print(f"rebuilt {len(out)} files")
+        return out
+    if (args.mesh_data or 0) > 1:
+        parser.error("--mesh_data > 1 is not ported to PyTorch yet: see ROADMAP.md, Queue 1, 'mesh'")
     stats, summary = process_dataset(
         args.csv_path,
         args.data_root_dir,
@@ -78,6 +89,7 @@ def main(argv=None):
         output_stats_path=args.output_stats_path,
         seed=args.seed,
         save_similarity=not args.no_save_similarity,
+        file_batch=args.file_batch,
         bucket_patches=args.bucket_patches,
         upload_dtype=args.upload_dtype,
         skip_existing=args.skip_existing,

@@ -29,21 +29,22 @@ def knn_indices(
     mask: Optional[torch.Tensor] = None,
     include_self: bool = True,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """For each row of ``x`` [N, D], its ``k`` nearest rows: (distances
-    [N, k] ascending, indices [N, k]).  With ``include_self`` the self-match
-    (distance pinned to exactly 0) sits in slot 0."""
+    """For each row of ``x`` [..., N, D], its ``k`` nearest rows: (distances
+    [..., N, k] ascending, indices [..., N, k]); leading axes are slides.
+    With ``include_self`` the self-match (distance pinned to exactly 0) sits
+    in slot 0."""
     d = pairwise_sq_dists(x)
-    n = x.shape[0]
+    n = x.shape[-2]
     eye = torch.eye(n, dtype=torch.bool, device=x.device)
     if include_self:
         d = torch.where(eye, 0.0, d)
     if mask is not None:
-        d = torch.where(~mask[None, :], _BIG, d)
-        d = torch.where(~mask[:, None], _BIG, d)
+        d = torch.where(~mask[..., None, :], _BIG, d)
+        d = torch.where(~mask[..., :, None], _BIG, d)
     if not include_self:
         d = d + eye.to(d.dtype) * _BIG
-    vals, idx = torch.sort(d, dim=1, stable=True)
-    return torch.sqrt(torch.clamp_min(vals[:, :k], 0.0)), idx[:, :k]
+    vals, idx = torch.sort(d, dim=-1, stable=True)
+    return torch.sqrt(torch.clamp_min(vals[..., :k], 0.0)), idx[..., :k]
 
 
 def knn_indices_blockwise(

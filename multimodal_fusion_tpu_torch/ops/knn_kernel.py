@@ -111,7 +111,12 @@ def knn_indices_auto(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The build's node-KNN dispatcher, as in the JAX package: the running
     top-k (K2 on CUDA, its blockwise plain version on the CPU) once N
-    reaches ``min_kernel_n``; the dense [N, N] top-k below that."""
-    if x.shape[0] >= min_kernel_n:
+    reaches ``min_kernel_n``; the dense [N, N] top-k below that.  ``x`` is
+    [N, D] or a batch of slides [B, N, D]: the dense top-k runs once for
+    the batch, K2 once per slide."""
+    if x.shape[-2] < min_kernel_n:
+        return knn_indices(x, k)
+    if x.dim() == 2:
         return knn(x, k)
-    return knn_indices(x, k)
+    d, i = zip(*(knn(xb, k) for xb in x))
+    return torch.stack(d), torch.stack(i)

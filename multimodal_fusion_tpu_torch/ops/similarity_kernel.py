@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import Optional
 
 import torch
 
@@ -91,14 +92,18 @@ def similarity_rect(
     lambda_h: float = 1.0,
     lambda_g: float = 1.0,
     bf16_exact: bool = False,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """[M, N] combined similarity: K1 on CUDA tensors, the plain version on
-    CPU tensors.  ``similarity_rect.launches`` counts kernel launches."""
+    CPU tensors.  ``out``, a contiguous float32 [M, N] tensor on the inputs'
+    device, receives the result in place of a new tensor.
+    ``similarity_rect.launches`` counts kernel launches."""
     if row_features.device.type == "cpu":
-        return similarity_rect_plain(
+        plain = similarity_rect_plain(
             row_features, row_positions, col_features, col_positions,
             lambda_h, lambda_g, bf16_exact,
         )
+        return plain if out is None else out.copy_(plain)
     if row_features.device.type != "cuda":
         raise ValueError(f"similarity_rect: unsupported device {row_features.device}")
     m, d = row_features.shape
@@ -118,7 +123,12 @@ def similarity_rect(
     g_scale = float(lambda_g) ** 0.5
     pi = (row_positions.float() * g_scale).contiguous()
     pj = pi if col_positions is row_positions else (col_positions.float() * g_scale).contiguous()
-    out = torch.empty((m, n), dtype=torch.float32, device=row_features.device)
+    if out is None:
+        out = torch.empty((m, n), dtype=torch.float32, device=row_features.device)
+    elif (out.shape != (m, n) or out.dtype != torch.float32 or out.device != row_features.device
+          or not out.is_contiguous()):
+        raise ValueError("similarity_rect: out must be a contiguous float32 [M, N] tensor "
+                         "on the inputs' device")
     if m == 0 or n == 0:
         return out
     lib = _lib()
@@ -142,6 +152,7 @@ def combined_similarity_auto(
     lambda_h: float = 1.0,
     lambda_g: float = 1.0,
     bf16_exact: bool = False,
+    out: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The build's square [N, N] similarity (counterpart of both
     ``pallas_combined_similarity`` and the ``combined_similarity_auto``
@@ -149,5 +160,5 @@ def combined_similarity_auto(
     crossover was a TPU measurement and does not carry over.  On the CPU,
     K1's plain version."""
     return similarity_rect(
-        features, positions, features, positions, lambda_h, lambda_g, bf16_exact
+        features, positions, features, positions, lambda_h, lambda_g, bf16_exact, out
     )

@@ -198,14 +198,20 @@ def test_process_dataset_pipeline_and_resume(tmp_path):
 
 
 def test_unported_paths_raise_and_device_defaults_to_cuda(tmp_path, monkeypatch):
+    """Only ``mesh`` is still unported; the batched build and blockwise
+    statistics, which raised before, build."""
     csv_path = _write_fixture(tmp_path, n_cases=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tbuild.process_dataset(csv_path, tmp_path, file_batch=2, save_similarity=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, 'mesh'"):
+        tbuild.process_dataset(csv_path, tmp_path, save_similarity=False, mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, 'mesh'"):
         tbuild.process_single_file(tmp_path / "case_0.h5", mesh=object(), device="cpu")
+    stats, _ = tbuild.process_dataset(csv_path, tmp_path, **PARAMS, file_batch=2,
+                                      save_similarity=False, device="cpu")
+    assert [s.get("error") for s in stats] == [None]
     monkeypatch.setattr(tbuild, "FULL_STATS_MAX_N", 100)
-    with pytest.raises(NotImplementedError, match="blockwise statistics"):
-        tbuild.process_single_file(tmp_path / "case_0.h5", **PARAMS, save_similarity=False, device="cpu")
+    block = tbuild.process_single_file(tmp_path / "case_0.h5", **PARAMS, save_similarity=False,
+                                       device="cpu")
+    assert block["wsi_aggregation"]["wsi_similarity_matrix_stats"]["median"] is not None
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             tbuild.process_single_file(tmp_path / "case_0.h5", **PARAMS)
@@ -223,8 +229,9 @@ def test_cli_builds_on_cpu_and_rejects_unported_flags(tmp_path):
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["files"] == 2 and summary["total_patches"] == 600
     assert all(has_complete_hypergraph(tmp_path / f"case_{i}.h5") for i in range(2))
-    bad = subprocess.run(cmd + ["--rebuild"], cwd=REPO, capture_output=True, text=True, timeout=300)
-    assert bad.returncode == 2 and "ROADMAP.md" in bad.stderr
+    bad = subprocess.run(cmd + ["--mesh_data", "2"], cwd=REPO, capture_output=True, text=True,
+                         timeout=300)
+    assert bad.returncode == 2 and "ROADMAP.md, Queue 1, 'mesh'" in bad.stderr
 
 
 def _h5_datasets(path):

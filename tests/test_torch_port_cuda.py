@@ -88,6 +88,46 @@ def test_similarity_kernel_reads_row_slices(cuda, bf16):
     assert bool((k.diagonal() == 1.0).all())
 
 
+@pytest.mark.parametrize("bf16", [False, True], ids=["f32", "bf16"])
+def test_similarity_stripe_equals_the_rows_of_the_whole_k(cuda, bf16):
+    """The blockwise statistics' stripes (rows r0:r0+B of the points against
+    all of them) are bit-identical to the same rows of the whole K, for a
+    short last stripe too: K1's value at (i, j) does not depend on the
+    launch's shape."""
+    rng = np.random.default_rng(23)
+    f, p, _ = clustered_slide(rng, 3000, 1, 1024)
+    f, p = torch.as_tensor(f, device=cuda), torch.as_tensor(p, device=cuda)
+    if bf16:
+        f = f.to(torch.bfloat16)
+    whole = similarity_rect(f, p, f, p, 1.0, 1.0, bf16)
+    for r0 in (0, 1024, 2048):
+        stripe = similarity_rect(f[r0:r0 + 1024], p[r0:r0 + 1024], f, p, 1.0, 1.0, bf16)
+        assert torch.equal(stripe, whole[r0:r0 + 1024])
+
+
+def test_blockwise_statistics_equal_the_whole_k(cuda):
+    """The build's streamed statistics on the card against the whole K of
+    the same points: minimum, maximum and median bit-equal, mean and std
+    within 1e-6 relative; the stats pass and the refine sweeps agree (the
+    median's total cross-check)."""
+    from multimodal_fusion_tpu_torch.hypergraph import build
+
+    rng = np.random.default_rng(24)
+    f, p, _ = clustered_slide(rng, 2500, 1, 256)
+    f, p = torch.as_tensor(f, device=cuda), torch.as_tensor(p, device=cuda)
+    labels = torch.as_tensor(rng.integers(0, 8, 2500), device=cuda)
+    tsum, tsumsq, mn, mx, *_, hist = build._blockwise_similarity_stats(
+        f, p, 1.0, 1.0, labels, 8, 2500, False, block=1024)
+    host = {"med_cnt": hist.cpu().numpy(), "K_stats": np.zeros(5, np.float32)}
+    build._attach_exact_median(host, 2500, f, p, 1.0, 1.0, False)
+    want = build._matrix_stats_dev(similarity_rect(f, p, f, p)).cpu().numpy()
+    cnt = 2500.0 ** 2
+    mean = float(tsum) / cnt
+    std = (float(tsumsq) / cnt - mean * mean) ** 0.5
+    assert float(mn) == want[2] and float(mx) == want[3] and host["K_stats"][4] == want[4]
+    np.testing.assert_allclose([mean, std], want[:2], rtol=1e-6)
+
+
 @pytest.mark.parametrize(
     "n,k,data",
     [
@@ -323,7 +363,9 @@ def test_attention_kernel_reads_strided_qkv(cuda):
 # bf16 before the second products on both sides, where a last-bit f32
 # difference can flip a rounding (relative L2 <= 1e-2).
 def _rel_l2(a, b):
-    a, b = a.float(), b.float()
+    """Relative L2 distance of ``a`` from ``b``, on the CPU (the card-vs-CPU
+    tests below hold a card tensor against a CPU one)."""
+    a, b = a.float().cpu(), b.float().cpu()
     return float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b).clamp_min(1e-30))
 
 
@@ -604,10 +646,6 @@ def test_flagship_bf16_and_drop_prob_on_card(cuda, tmp_path):
     assert float((p16 - p32).abs().max()) <= 4e-2
     assert torch.equal(zero["probabilities"], p32)
     assert torch.equal(ones["logits"], head)
-
-
-def _rel_l2(a, b):
-    return float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30))
 
 
 @pytest.mark.parametrize("loss_type,svd_impl,lambda2", [("volume", "gram", 0.0),

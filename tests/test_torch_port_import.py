@@ -67,6 +67,7 @@ required = {
     "multimodal_fusion_tpu_torch.train.vae",
     "multimodal_fusion_tpu_torch.cli.train_vae",
     "multimodal_fusion_tpu_torch.cli.generate_reconstructed_wsi",
+    "multimodal_fusion_tpu_torch.hypergraph.dense_graph",
 }
 assert required <= set(names), sorted(required - set(names))
 print(len(names))
