@@ -156,6 +156,13 @@ VAE_BATCH = 1024
 # CPU at 6000; the batched build's bucketed slides; the dense graph
 BIG_N, STRIPE, MID_N, CPU_N, BUCKET_FILES, DENSE_N = 65536, 1024, 36864, 6000, 16, 2048
 
+# the parallel layer: gangs of ranks on this one card (gloo) beside an NCCL
+# world of 1 in this process; one training window of 16 cases with WSI bags
+# of up to 1024 patches at each trainer's width
+GANG_TIMEOUT = 300
+MESH_WINDOW, MESH_WSI = 16, 1024
+DRY = "multimodal_fusion_tpu_torch.parallel.dryrun"
+
 
 def _card_line() -> str:
     out = subprocess.run(
@@ -1042,6 +1049,7 @@ def main() -> int:
         s.check(np.isfinite(res["host"]["K_stats"]).all(), f"{n}-patch K_stats finite")
         check_build_k1(f"[{n},{n},{DIM}] (the {n}-patch slide)", slide[0], slide[1],
                        res["host"]["K_stats"])
+        held_builds["p5"] = res["host"]  # phase 36 holds the 2-rank build to it
         # K1 alone at this shape (the plain version's float64 temporaries
         # would take tens of GiB here: not timed)
         f, p = torch.as_tensor(slide[0], device=dev), torch.as_tensor(slide[1], device=dev)
@@ -3592,6 +3600,7 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 28
     big = {}  # the 65536-patch slide, read by phase 29
+    held_builds = {}  # phases 5 and 28's host outputs, read by phase 36
 
     def blockwise_phase():
         """Main path: one 65536-patch slide above FULL_STATS_MAX_N with
@@ -3697,6 +3706,7 @@ def main() -> int:
                   f"{100 * count_ms / (count_ms + op_ms['K1']):.1f}% of a refine stripe")
         check_whole_k(f"{n}-patch slide", got, res["host"], f, p, False)
         big["slide"] = (f, p)
+        held_builds["p28"] = res["host"]  # phase 36 holds the 2-rank build to it
 
     def check_whole_k(label, got, host, f, p, bf16):
         """The streamed statistics against K1's whole K of the same slide:
@@ -4028,6 +4038,221 @@ def main() -> int:
         s.check(w_err <= 1e-5 and p_err <= 1e-6,
                 f"dense graph weights {w_err:.2e} <= 1e-5, pooled feature {p_err:.2e} <= 1e-6")
 
+    # ------------------------------------------------------- 35-39: the mesh
+    from multimodal_fusion_tpu_torch.parallel import dryrun
+    from multimodal_fusion_tpu_torch.parallel.mesh import make_mesh
+    from multimodal_fusion_tpu_torch.parallel.multihost import launch, run_gang
+
+    world1 = {}  # the NCCL world of 1 in this process, made in phase 35
+
+    def mesh1():
+        if "mesh" not in world1:
+            world1["mesh"] = make_mesh(1, device="cuda")
+            s.log(f"  world of 1: backend {world1['mesh'].backend}, device {world1['mesh'].device}")
+        return world1["mesh"]
+
+    def gang(world, calls, timeout=GANG_TIMEOUT):
+        """Each rank's results of ``calls`` in a gang of ``world`` ranks on
+        this card (gloo), with the gang's wall."""
+        torch.cuda.empty_cache()  # the ranks share the card with this process's cache
+        t0 = time.perf_counter()
+        results, _ = run_gang("multimodal_fusion_tpu_torch.parallel.dryrun:run_calls", world,
+                              {"calls": calls, "device": "cuda"}, timeout=timeout, device="cuda")
+        wall = time.perf_counter() - t0
+        for rank, res in enumerate(results):
+            for i, r in enumerate(res):
+                if isinstance(r, dict) and "raised" in r:
+                    raise RuntimeError(f"rank {rank}, call {i} ({calls[i][0]}): {r}")
+        return results, wall
+
+    def add_rank_launches(results, idx, label):
+        """A gang call's kernel launches in each rank, added to the main path's."""
+        per_rank = [res[idx]["launches"] for res in results]
+        for launches in per_rank:
+            for name, k in launches.items():
+                main_path_launches[name] += k
+        s.log(f"  {label}: launches per rank " + "; ".join(
+            ", ".join(f"{n} {k}" for n, k in l.items() if k) or "none" for l in per_rank))
+        return per_rank
+
+    def same_build(label, got, want):
+        """The bars of phases 4, 5 and 28: median, min and max bit for bit,
+        mean, std and intra_mean 1e-5 relative."""
+        g, w = np.asarray(got["K_stats"]), np.asarray(want["K_stats"])
+        exact = bool(np.array_equal(g[2:], w[2:]))
+        rel = float(np.max(np.abs(g[:2].astype(np.float64) - w[:2]) / np.abs(w[:2])))
+        intra = float(abs(got["intra_mean"] - want["intra_mean"]) / abs(want["intra_mean"]))
+        s.check(exact and rel <= 1e-5 and intra <= 1e-5,
+                f"{label}: median, min, max bit-equal ({exact}), mean/std {rel:.2e} and "
+                f"intra_mean {intra:.2e} <= 1e-5 relative")
+
+    def mesh_build_phase():
+        """Phase 4's 8 slides through process_dataset(mesh=) on an NCCL
+        world of 1, against the unsharded process_dataset, in turns."""
+        from multimodal_fusion_tpu_torch.io.h5io import read_hypergraph_group
+
+        mesh = mesh1()
+        with _hdf5_files() as (td, how):
+            s.log(f"  {how}")
+            roots = {side: td / side for side in ("unsharded", "mesh")}
+            for root in roots.values():
+                make_clustered_dataset(root, N_FILES, N_PATCHES, N_TMA, DIM, seed=0)
+            walls = {side: [] for side in roots}
+            out = {}
+            # the first collectives set NCCL up: one slide built before the windows
+            build.process_arrays(*clustered_slide(np.random.default_rng(1), N_PATCHES, N_TMA, DIM),
+                                 **params, save_similarity=False, device=dev, mesh=mesh)
+            for side in ("unsharded", "mesh") * 3:
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                stats, _ = build.process_dataset(
+                    roots[side] / "dataset.csv", roots[side], **params, save_similarity=False,
+                    pipeline_depth=4, device=dev, mesh=mesh if side == "mesh" else None)
+                walls[side].append(time.perf_counter() - t0)
+                s.check(not any("error" in st for st in stats), f"{side}: no per-file errors")
+                if side == "mesh":
+                    launches = similarity_rect.launches
+                    add_main_path_counts()
+                    s.check(launches == N_FILES, f"K1 launched once a slide under the mesh "
+                                                 f"({launches} == {N_FILES}), a [{N_PATCHES}, {N_PATCHES}] stripe")
+                out[side] = stats
+            for a, b in zip(out["mesh"], out["unsharded"]):
+                ga, gb = (a["wsi_aggregation"], b["wsi_aggregation"])
+                sa, sb = ga["wsi_similarity_matrix_stats"], gb["wsi_similarity_matrix_stats"]
+                same_build(f"{a['case_id']} mesh vs unsharded",
+                           {"K_stats": [sa[k] for k in ("mean", "std", "min", "max", "median")],
+                            "intra_mean": ga["avg_intra_cluster_similarity"]},
+                           {"K_stats": [sb[k] for k in ("mean", "std", "min", "max", "median")],
+                            "intra_mean": gb["avg_intra_cluster_similarity"]})
+                fa = read_hypergraph_group(roots["mesh"] / a["h5_path"])
+                fb = read_hypergraph_group(roots["unsharded"] / b["h5_path"])
+                s.check(all(np.array_equal(fa[k], fb[k]) for k in ("edge_index", "group_labels")),
+                        f"{a['case_id']}: edges and groups equal")
+        pps = {side: N_FILES * N_PATCHES / float(np.median(w)) for side, w in walls.items()}
+        s.timed(f"process_dataset, {N_FILES} x {N_PATCHES} patches, medians of 3 windows in "
+                f"turns: mesh (NCCL world of 1) {pps['mesh']:.1f} patches/s, unsharded "
+                f"{pps['unsharded']:.1f} patches/s (walls {walls})")
+
+    def mesh_large_phase():
+        """2 ranks sharing the card (gloo): phase 5's 32768-patch slide in
+        full statistics (a [16384, 32768] K1 stripe per rank) and phase 28's
+        65536-patch slide in streamed statistics, held to phases 5 and 28."""
+        calls = [(f"{DRY}:build_clustered", dict(n_patches=n, slide_seed=seed, n_tma=N_TMA, dim=DIM,
+                                                  save_similarity=False, **params), {"data": 2})
+                 for n, seed in ((build.FULL_STATS_MAX_N, 5), (BIG_N, 28))]
+        results, wall = gang(2, calls)
+        s.timed(f"gang of 2 ranks on one card: the {build.FULL_STATS_MAX_N}- and {BIG_N}-patch "
+                f"slides in {wall:.1f} s wall (process start-up included; an overhead, not a "
+                "speed-up: the ranks share the card)")
+        for i, (n, key) in enumerate(((build.FULL_STATS_MAX_N, "p5"), (BIG_N, "p28"))):
+            per_rank = add_rank_launches(results, i, f"{n}-patch slide")
+            share = n // 2
+            want_k1 = [1, 1] if key == "p5" else [-(-share // STRIPE)] * 2
+            got_k1 = [l["similarity"] for l in per_rank]
+            s.check(got_k1[0] >= want_k1[0] and got_k1[1] >= want_k1[1],
+                    f"{n}-patch slide: K1 per rank {got_k1} (stats pass {want_k1} stripes"
+                    + (" and the refine sweeps)" if key == "p28" else ")"))
+            s.timed(f"{n}-patch slide, 2 ranks: build walls per rank "
+                    + ", ".join(f"{r[i]['wall']:.3f} s" for r in results))
+            if key in held_builds:
+                want = held_builds[key]
+                same_build(f"{n}-patch slide, 2 ranks vs phase {key[1:]}", results[0][i]["host"], want)
+                s.log(f"  super-patch labels equal to phase {key[1:]}'s: "
+                      f"{bool(np.array_equal(results[0][i]['host']['labels'], want['labels']))}")
+            else:
+                s.check(False, f"phase {key[1:]} left no build to hold the {n}-patch slide to")
+
+    def mesh_extraction_phase():
+        """ViT-L/16 extraction with each batch sharded: world 1 (NCCL) and 2
+        ranks (gloo), float32 and bfloat16, against the unsharded extractor."""
+        kw = dict(n_patches=2 * VIT_BATCH, patch=256, batch_size=VIT_BATCH)
+        for dtype in ("float32", "bfloat16"):
+            res = dryrun.check_extraction(mesh1(), compute_dtype=dtype, timed_calls=3, **kw)
+            main_path_launches["attention"] += res["launches"]
+            s.check(res["launches"] == 2 * VIT_DEPTH, f"world 1 {dtype}: K3 {res['launches']} "
+                                                      f"launches == {2 * VIT_DEPTH}")
+            s.timed(f"extraction {dtype}, world 1: rel L2 {res['rel_l2']:.2e}, least cosine "
+                    f"{res['min_cosine']:.6f}; {2 * VIT_BATCH / res['ms'] * 1e3:.1f} patches/s "
+                    f"(unsharded {2 * VIT_BATCH / res['unsharded_ms'] * 1e3:.1f})")
+        calls = [(f"{DRY}:check_extraction", dict(compute_dtype=dtype, **kw), {"data": 2})
+                 for dtype in ("float32", "bfloat16")]
+        results, wall = gang(2, calls)
+        for i, dtype in enumerate(("float32", "bfloat16")):
+            per = [r[i] for r in results]
+            for r in per:
+                main_path_launches["attention"] += r["launches"]
+            s.check(all(r["launches"] == 2 * VIT_DEPTH for r in per),
+                    f"2 ranks {dtype}: K3 per rank {[r['launches'] for r in per]} == {2 * VIT_DEPTH} "
+                    f"({VIT_BATCH // 2} rows of each of 2 batches)")
+            s.log(f"  2 ranks {dtype}: rel L2 {[f'{r['rel_l2']:.2e}' for r in per]}, least cosine "
+                  f"{[f'{r['min_cosine']:.6f}' for r in per]} (checked in each rank: 1e-5 / 0.999)")
+        s.timed(f"extraction gang of 2: {wall:.1f} s wall (start-up included)")
+
+    def mesh_training_phase():
+        """One window of each trainer sharded and unsharded: world 1 (NCCL)
+        and 2 ranks (gloo); dropout 0 for the equality, the flagship's 0.25
+        for the ranks' equality."""
+        bars = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
+        exact = flag_config()
+        exact.dropout, exact.enable_random_loss = 0.0, False
+        mf = dataclasses.replace(exact, model_type="mfmf", dropout=0.0, output_dim=MFMF_DIM,
+                                 fusion_blocks_sequence=DEFAULT_FUSION_SEQUENCE)
+        mf.extra = dict(exact.extra, attention_num_heads=MFMF_HEADS)
+        win = dict(G=MESH_WINDOW, wsi=MESH_WSI, tma=16)
+        markers = list(TMA_MARKERS)
+        steps = [
+            ("flagship", "check_survival_step", dict(config=exact, tol=bars, **win)),
+            ("flagship, dropout 0.25", "check_survival_step", dict(config=flag_config(), **win)),
+            ("MFMF", "check_survival_step", dict(config=mf, tol=bars, **win)),
+            ("VAE", "check_vae_step", dict(B=VAE_BATCH, input_dim=DIM, hidden=(512, 256),
+                                           latent=128)),
+            ("alignment (volume)", "check_alignment_step",
+             dict(B=ALIGN_BATCH, markers=markers, feature_dim=DIM, num_layers=2,
+                  loss_type="volume", lambda2=0.0)),
+        ]
+        for label, fn, kw in steps:
+            res = getattr(dryrun, fn)(mesh1(), timed_steps=5, **kw)
+            if "tol" not in kw and fn == "check_survival_step":
+                s.check(res["ranks_equal"] and res["finite"], f"{label}: finite loss")
+            if "launches" in res:
+                for name, k in res["launches"].items():
+                    main_path_launches[name] += k
+            rate = (win["G"] if fn == "check_survival_step" else kw["B"])
+            s.timed(f"{label}, world 1: loss {res['loss']:.6f}, rel: loss {res['loss_rel']:.2e}, "
+                    + (f"grads {res['grad_rel']:.2e}, " if "grad_rel" in res else "")
+                    + f"params {res['param_rel']:.2e}; {rate / res['ms'] * 1e3:.1f} "
+                    f"{'cases' if fn == 'check_survival_step' else 'samples'}/s (unsharded "
+                    f"{rate / res['unsharded_ms'] * 1e3:.1f})"
+                    + (f"; launches {res['launches']}" if "launches" in res else ""))
+        results, wall = gang(2, [(f"{DRY}:{fn}", kw, {"data": 2}) for _, fn, kw in steps])
+        for i, (label, fn, kw) in enumerate(steps):
+            per = [r[i] for r in results]
+            if fn == "check_survival_step":
+                add_rank_launches(results, i, label)
+            s.log(f"  {label}, 2 ranks: rel loss {per[0]['loss_rel']:.2e}, grads "
+                  f"{per[0]['grad_rel']:.2e}, params {per[0]['param_rel']:.2e}, ranks equal "
+                  f"{per[0]['ranks_equal']} (held in each rank)")
+        s.check(all(l["attention"] > 0 and l["attention_bwd"] > 0
+                    for l in (r[2]["launches"] for r in results)),
+                "MFMF under the mesh: K3 and K4 launched in every rank")
+        s.timed(f"training gang of 2: {wall:.1f} s wall (start-up included)")
+
+    def gang_phase():
+        """parallel/multihost.py's gang of 2 and dryrun_multichip(4) on the card."""
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        out = launch(2, timeout=GANG_TIMEOUT, device="cuda")
+        ok = [line for line in out.splitlines() if line.startswith("multihost OK")]
+        s.check(len(ok) == 2, f"multihost gang of 2: {len(ok)} OK lines "
+                              f"({time.perf_counter() - t0:.1f} s wall)")
+        for line in ok:
+            s.log(f"  {line}")
+        t0 = time.perf_counter()
+        text = dryrun.dryrun_multichip(4, timeout=GANG_TIMEOUT, device="cuda")
+        s.check(text.count("dryrun_multichip(4): ") == 4 and "mesh {'replica': 2, 'data': 2}" in text,
+                f"dryrun_multichip(4): 4 OK lines ({time.perf_counter() - t0:.1f} s wall)")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -4062,6 +4287,13 @@ def main() -> int:
     s.phase("32. main path: the batched build, file_batch=8 vs 1", batched_phase)
     s.phase("33. main path: build CLI --cache_similarity, --rebuild", cache_rebuild_phase)
     s.phase("34. main path: the dense graph", dense_graph_phase)
+    s.phase("35. main path: mesh build, NCCL world of 1", mesh_build_phase)
+    s.phase("36. main path: mesh build, 2 ranks on the card", mesh_large_phase)
+    s.phase("37. main path: mesh extraction", mesh_extraction_phase)
+    s.phase("38. main path: data-parallel training", mesh_training_phase)
+    s.phase("39. the multihost gang and the dry run on the card", gang_phase)
+    if world1:  # the NCCL world of 1 of phases 35-38
+        torch.distributed.destroy_process_group()
     for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run):
         if "dir" in d:
             shutil.rmtree(d["dir"], ignore_errors=True)

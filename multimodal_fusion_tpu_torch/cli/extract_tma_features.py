@@ -12,7 +12,12 @@ optional white filter), extracts ViT-L/16 CLS features, writes
 Pretrained UNI weights load from a converted numpy state dict via
 ``--weights``; without weights the encoder runs from a seeded random init.
 Runs on the CUDA card unless ``--device cpu`` is given.  PIL is imported
-inside ``main`` only, to decode the PNGs.
+inside ``main`` only, to decode the PNGs.  ``--mesh_data N`` shards each
+batch over the N ranks of a launch (every rank decodes the cores, rank 0
+writes the npz files)::
+
+    torchrun --nproc_per_node 2 -m multimodal_fusion_tpu_torch.cli.extract_tma_features \
+        --input_dir CORES --output_dir OUT --mesh_data 2
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from multimodal_fusion_tpu_torch.data.tma_extraction import (
     save_marker_npz,
 )
 from multimodal_fusion_tpu_torch.device import resolve_device
+from multimodal_fusion_tpu_torch.parallel.mesh import barrier, make_mesh
 from multimodal_fusion_tpu_torch.models.vit import load_timm_vit_weights, vit_large_16
 
 
@@ -51,7 +57,7 @@ def build_parser():
                    default="float32",
                    help="bfloat16 runs the ViT in bf16 (features stay f32)")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="shard each batch over an N-device data mesh (not ported yet)")
+                   help="shard each batch over the N ranks of a launch (torchrun)")
     p.add_argument("--device", type=str, default=None,
                    help="torch device; default: the CUDA card (cpu runs on the host)")
     return p
@@ -59,21 +65,21 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    mesh = None
     if args.mesh_data and args.mesh_data > 1:
-        raise NotImplementedError(
-            "--mesh_data > 1 is not ported yet (ROADMAP Queue 1 item 16, the parallel layer)"
-        )
+        mesh = make_mesh(args.mesh_data, device=args.device)
     from PIL import Image
 
-    dev = resolve_device(args.device)
+    dev = resolve_device(args.device) if mesh is None else mesh.device
     model = vit_large_16(torch.Generator(device=dev).manual_seed(args.seed))
     if args.weights:
         state = dict(np.load(args.weights))
         n = load_timm_vit_weights(model, state)
         print(f"loaded {n} weight tensors")
     extractor = make_feature_extractor(
-        model, args.batch_size, compute_dtype=args.compute_dtype, device=dev
+        model, args.batch_size, compute_dtype=args.compute_dtype, mesh=mesh, device=dev
     )
+    is_main = mesh is None or mesh.is_main
 
     out_dir = Path(args.output_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -105,9 +111,11 @@ def main(argv=None):
             args.white_threshold, args.min_content_ratio,
         )
         out_path = out_dir / f"tma_uni_tile_1024_{marker}.npz"
-        save_marker_npz(out_path, feats)
+        if is_main:
+            save_marker_npz(out_path, feats)
+            print(f"{marker}: {len(feats)} cores -> {out_path}")
         written[marker] = len(feats)
-        print(f"{marker}: {len(feats)} cores -> {out_path}")
+    barrier(mesh)
     return written
 
 

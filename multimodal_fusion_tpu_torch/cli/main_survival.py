@@ -17,7 +17,13 @@ port's ``cli.predict`` and ``cli.serve`` score that directory.
 Per-channel input dims are probed from the first case up front (static
 shapes replace the reference's lazily created transfer layers).
 ``--tpu_opts`` keeps its name: a JSON dict merged into the experiment
-config (``device_data``, ``remat``, ...).  An alignment model
+config (``device_data``, ``remat``, ``mesh_shape``, ...).  With a
+``mesh_shape`` the CLI trains data parallel over the ranks of a launch::
+
+    torchrun --nproc_per_node 2 -m multimodal_fusion_tpu_torch.cli.main_survival \
+        ... --tpu_opts '{"mesh_shape": {"data": 2}}'
+
+and rank 0 writes the results directory.  An alignment model
 (``--alignment_model_path``, from ``cli.run_alignment``) aligns the
 ``--aligned_channels`` at load time into ``aligned_<channel>`` features;
 a path that does not exist is ignored, as the JAX CLI ignores it.
@@ -33,11 +39,13 @@ from pathlib import Path
 from typing import Dict, List
 
 import numpy as np
+import torch
 
 from multimodal_fusion_tpu_torch.channels import parse_channels
 from multimodal_fusion_tpu_torch.config import Configs, ExperimentConfig, ModelConfig
 from multimodal_fusion_tpu_torch.data.splits import create_k_fold_splits
 from multimodal_fusion_tpu_torch.models.base import derive_used_modalities
+from multimodal_fusion_tpu_torch.parallel.mesh import broadcast, mesh_from_shape
 from multimodal_fusion_tpu_torch.utils.seeding import seed_everything
 
 
@@ -254,10 +262,16 @@ def run(args: argparse.Namespace, dataset) -> Path:
     channel_dims = infer_channel_input_dims(dataset, args.channels_used_in_model)
     configs = args_to_configs(args, channel_dims)
 
-    stamp = time.strftime("%Y%m%d_%H%M%S")
+    # under a mesh_shape (torchrun), every rank names the directory from
+    # rank 0's clock, and rank 0 alone writes the files
+    mesh = mesh_from_shape(configs.experiment_config.mesh_shape, args.device)
+    now = broadcast(mesh, torch.tensor(int(time.time()), dtype=torch.int64))
+    stamp = time.strftime("%Y%m%d_%H%M%S", time.localtime(int(now)))
     log_dir = Path(args.results_dir) / f"{args.exp_code}_{stamp}"
     log_dir.mkdir(parents=True, exist_ok=True)
-    configs.save(log_dir / f"configs_{args.exp_code}.json")
+    is_main = mesh is None or mesh.is_main
+    if is_main:
+        configs.save(log_dir / f"configs_{args.exp_code}.json")
 
     splits = create_k_fold_splits(
         dataset.labels,
@@ -266,9 +280,11 @@ def run(args: argparse.Namespace, dataset) -> Path:
         patient_ids=[dataset.case_to_patient[c] for c in dataset.case_ids],
         fixed_split_path=args.dataset_split_path if args.split_mode == "fixed" else None,
     )
-    trainer = SurvivalTrainer(configs, log_dir, device=args.device)
+    trainer = SurvivalTrainer(configs, log_dir, device=args.device, mesh=mesh)
     summaries = [trainer.train_fold(dataset, splits[fold_idx], fold_idx)
                  for fold_idx in range(args.start_k_fold, args.k)]
+    if not is_main:
+        return log_dir
 
     with open(log_dir / "summary.csv", "w", newline="") as f:
         w = csv.DictWriter(f, fieldnames=["fold", "val_auc", "val_acc", "test_auc", "test_acc"])

@@ -8,8 +8,12 @@ Same flags as ``multimodal_fusion_tpu.cli.preprocess_hypergraph`` plus
 
 ``--cache_similarity`` writes the similarity caches into built files,
 ``--rebuild`` re-tunes built files from them (``--threshold_median_ratio``
-drops the weaker edges).  ``--mesh_data > 1`` exits with an error naming its
-ROADMAP.md item.
+drops the weaker edges).  ``--mesh_data N`` shards each slide's patch axis
+over the N ranks of a launch (N larger than the world fails as the JAX
+package's ``make_mesh`` does; rank 0 writes the groups)::
+
+    torchrun --nproc_per_node 2 -m multimodal_fusion_tpu_torch.cli.preprocess_hypergraph \
+        --csv_path D/dataset.csv --data_root_dir D --no_save_similarity --mesh_data 2
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from multimodal_fusion_tpu_torch.hypergraph.build import (
     batch_rebuild_hypergraph,
     process_dataset,
 )
+from multimodal_fusion_tpu_torch.parallel.mesh import make_mesh
 
 
 def build_parser():
@@ -75,8 +80,9 @@ def main(argv=None):
         )
         print(f"rebuilt {len(out)} files")
         return out
+    mesh = None
     if (args.mesh_data or 0) > 1:
-        parser.error("--mesh_data > 1 is not ported to PyTorch yet: see ROADMAP.md, Queue 1, 'mesh'")
+        mesh = make_mesh(args.mesh_data, device=args.device)
     stats, summary = process_dataset(
         args.csv_path,
         args.data_root_dir,
@@ -94,8 +100,10 @@ def main(argv=None):
         upload_dtype=args.upload_dtype,
         skip_existing=args.skip_existing,
         device=args.device,
+        mesh=mesh,
     )
-    print(json.dumps(summary))
+    if mesh is None or mesh.is_main:
+        print(json.dumps(summary))
     return stats
 
 

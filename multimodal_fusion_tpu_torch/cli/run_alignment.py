@@ -12,9 +12,13 @@ Fixed 8 markers at feature dim 1024 by default; builds the aligned-with-
 negatives dataset, an 8:1:1 shuffled split by full tuple key (the JAX CLI's
 membership for a seed), trains, and writes ``<save_path>`` (the best
 checkpoint, at a validation), ``<save_path>.history.json`` (losses, SVD
-values, config) and ``<save_path>.scalars.csv``.  ``--scan_steps``,
-``--mesh_data`` and ``--mesh_replica`` keep the JAX CLI's meaning
-(``train.alignment``): the steps run one by one, and a mesh raises.
+values, config) and ``<save_path>.scalars.csv``.  ``--scan_steps`` keeps
+the JAX CLI's meaning (the steps run one by one).  ``--mesh_data`` and
+``--mesh_replica`` train data parallel over the ranks of a launch
+(``train.alignment``; rank 0 writes the files)::
+
+    torchrun --nproc_per_node 2 -m multimodal_fusion_tpu_torch.cli.run_alignment \
+        --base_dir NPZ_DIR --mesh_data 2
 """
 
 from __future__ import annotations
@@ -26,8 +30,8 @@ import torch
 
 from multimodal_fusion_tpu_torch.channels import TMA_MARKERS
 from multimodal_fusion_tpu_torch.data.alignment import TMANpzAlignedWithNegDataset
-from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
+from multimodal_fusion_tpu_torch.parallel.mesh import rank_device
 from multimodal_fusion_tpu_torch.train.alignment import MultiModalAlignmentTrainer
 
 
@@ -86,7 +90,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)  # no card without --device cpu: fail before reading data
+    # no card without --device cpu: fail before reading data; under a
+    # launcher each rank takes its own card
+    dev = rank_device(args.device)
     dataset = TMANpzAlignedWithNegDataset(
         args.base_dir,
         args.markers,

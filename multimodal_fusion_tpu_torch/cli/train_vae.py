@@ -9,8 +9,12 @@ card)::
 
 Writes ``<checkpoint_dir>/{latest,best}.npz`` with their histories,
 ``scalars.csv`` and TensorBoard event files under ``tb/``.
-``--scan_steps``, ``--mesh_data`` and ``--mesh_replica`` keep the JAX CLI's
-meaning (``train.vae``): the steps run one by one, and a mesh raises.
+``--scan_steps`` keeps the JAX CLI's meaning (the steps run one by one).
+``--mesh_data`` and ``--mesh_replica`` train data parallel over the ranks
+of a launch (``train.vae``; rank 0 writes the files)::
+
+    torchrun --nproc_per_node 2 -m multimodal_fusion_tpu_torch.cli.train_vae \
+        --csv_path D/dataset.csv --data_root_dir D --mesh_data 2
 """
 
 from __future__ import annotations
@@ -20,8 +24,8 @@ import argparse
 import torch
 
 from multimodal_fusion_tpu_torch.data.vae_patches import WSIVAEDataset, split_train_val
-from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.models.vae import VAE
+from multimodal_fusion_tpu_torch.parallel.mesh import rank_device
 from multimodal_fusion_tpu_torch.train.vae import VAETrainer
 
 
@@ -69,7 +73,9 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    dev = resolve_device(args.device)  # no card without --device cpu: fail before reading data
+    # no card without --device cpu: fail before reading data; under a
+    # launcher each rank takes its own card
+    dev = rank_device(args.device)
     ds = WSIVAEDataset(
         args.csv_path, args.data_root_dir, label_filter=args.label_filter,
         use_all_data=args.use_all_data, seed=args.seed,

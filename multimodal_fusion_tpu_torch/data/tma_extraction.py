@@ -39,6 +39,7 @@ from multimodal_fusion_tpu_torch.models.vit import (
     set_attention_impl,
 )
 from multimodal_fusion_tpu_torch.ops.resize import apply_resize, resize, resize_weights
+from multimodal_fusion_tpu_torch.parallel.mesh import all_gather_rows, divides
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -90,15 +91,17 @@ def make_feature_extractor(
     block (``models.vit.set_attention_impl``); ``auto`` runs the fused
     kernel K3 on the card.  The model is used as it is when it already
     lies on ``device`` in ``compute_dtype``, else a converted copy is made.
-    ``mesh`` (data-parallel extraction) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded extraction is not ported yet (ROADMAP Queue 1 item 16, the "
-            "parallel layer)"
-        )
+
+    ``mesh`` (``parallel.mesh``): each rank runs its rows of every batch
+    (``batch_size`` a multiple of the mesh size; otherwise every rank runs
+    whole batches) on its device and the features are all-gathered in patch
+    order, so every rank returns them all.  The JAX package forces XLA's
+    attention under a mesh (GSPMD cannot partition a Mosaic call); the port
+    keeps K3, with the same results."""
     if compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype must be one of {tuple(COMPUTE_DTYPES)}, got {compute_dtype!r}")
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    share = batch_size // mesh.size if divides(mesh, batch_size) else None
     dtype = COMPUTE_DTYPES[compute_dtype]
     params = list(model.parameters())
     if all(p.device == dev and p.dtype == dtype for p in params):
@@ -146,12 +149,17 @@ def make_feature_extractor(
         feats = []
         for start in range(0, n, batch_size):
             m = min(batch_size, n - start)
-            # fixed batch size: the last batch is padded with zeros
-            chunk = torch.empty((batch_size,) + tuple(host.shape[1:]), dtype=host.dtype, device=dev)
-            chunk[:m].copy_(host[start : start + m], non_blocking=True)
-            if m < batch_size:
-                chunk[m:].zero_()
-            feats.append(step(chunk)[:m])
+            # fixed batch size: the last batch is padded with zeros; under a
+            # mesh the rank's share of it
+            rows = batch_size if share is None else share
+            lo = start if share is None else start + mesh.rank * share
+            hi = min(lo + rows, start + m)
+            chunk = torch.empty((rows,) + tuple(host.shape[1:]), dtype=host.dtype, device=dev)
+            if hi > lo:
+                chunk[:hi - lo].copy_(host[lo:hi], non_blocking=True)
+            chunk[max(hi - lo, 0):].zero_()
+            out = step(chunk)
+            feats.append((out if share is None else all_gather_rows(mesh, out))[:m])
         return torch.cat(feats).cpu().numpy()  # the one wait for the device
 
     return extract

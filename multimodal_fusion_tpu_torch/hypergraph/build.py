@@ -25,13 +25,21 @@ their dataset loops).  They take ``device=None``, which means CUDA; the CPU
 runs only when asked for.  Random numbers come from ``torch.Generator``s on
 the run's device seeded from ``seed`` (three per slide in the fused build,
 one per KMeans in the stage-wise functions); ``init_centers`` replaces their
-kmeans++ draws.  ``mesh`` raises ``NotImplementedError`` naming its ROADMAP
-item.
+kmeans++ draws.
+
+``mesh`` (``parallel.mesh``, the ranks of a ``torchrun`` launch) shards one
+slide's patch axis over the ranks: each rank computes the K1 stripe of its
+rows and the statistics are reduced over the ranks, while the O(N * D)
+stages run whole on every rank (``_fused_build``), so the build equals the
+unsharded one.  The JAX build turns its Pallas kernels off under a mesh
+(GSPMD cannot partition a Mosaic call); the port has no such constraint and
+launches K1 on the rank's stripe at every N, as it does unsharded.
 """
 
 from __future__ import annotations
 
 import csv
+import functools
 import json
 import math
 import os
@@ -59,8 +67,10 @@ from multimodal_fusion_tpu_torch.ops.knn_kernel import knn_indices_auto
 from multimodal_fusion_tpu_torch.ops.similarity import cross_similarity, slide_matmul
 from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
     combined_similarity_auto,
+    sharded_combined_similarity,
     similarity_rect,
 )
+from multimodal_fusion_tpu_torch.parallel.mesh import all_gather_rows, all_reduce, barrier, rows_of
 
 # Above this many patches the [N, N] f32 similarity (4 GB at 32768) is not
 # materialised unless it is cached; statistics then come from LARGE_N_STATS.
@@ -72,12 +82,6 @@ LARGE_N_STATS = "blockwise"
 
 # KMeans restarts of every clustering in the build.
 N_INIT = 10
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet: see ROADMAP.md, Queue 1, '{item}'"
-    )
 
 
 # ---------------------------------------------------------------------------
@@ -317,17 +321,19 @@ def _hist_safe_block(n: int, block: int) -> int:
 
 
 def _similarity_stripes(feats, pos, n_eff: int, lambda_h, lambda_g, bf16_exact: bool,
-                        block: int = 1024):
+                        block: int = 1024, rows: Optional[Tuple[int, int]] = None):
     """Row stripes [<= block, n_eff] of the valid [n_eff, n_eff] block of
-    the combined similarity, each one K1 launch (its plain version on the
-    CPU); yields (first row, stripe).  The stats pass and every refine
-    sweep take their stripes from here, so they see bit-identical K."""
+    the combined similarity (of its rows ``rows`` = [lo, hi) only, a mesh
+    rank's share), each one K1 launch (its plain version on the CPU);
+    yields (first row, stripe).  The stats pass and every refine sweep take
+    their stripes from here, so they see bit-identical K."""
     fs = feats[:n_eff].to(torch.bfloat16 if bf16_exact else torch.float32)
     ps = pos[:n_eff].float()
-    blk = min(block, n_eff, _hist_safe_block(n_eff, block))
-    for r0 in range(0, n_eff, blk):
-        yield r0, similarity_rect(fs[r0:r0 + blk], ps[r0:r0 + blk], fs, ps,
-                                  lambda_h, lambda_g, bf16_exact)
+    lo, hi = rows or (0, n_eff)
+    blk = max(1, min(block, n_eff, _hist_safe_block(n_eff, block)))
+    for r0 in range(lo, hi, blk):
+        r1 = min(r0 + blk, hi)
+        yield r0, similarity_rect(fs[r0:r1], ps[r0:r1], fs, ps, lambda_h, lambda_g, bf16_exact)
 
 
 def _bin_bounds(lo_key: int, shift: int, nbins: int, device) -> torch.Tensor:
@@ -359,16 +365,18 @@ def _count_bins(K: torch.Tensor, bounds: torch.Tensor) -> torch.Tensor:
 
 def _median_level_pass(feats, pos, lambda_h, lambda_g, n_valid: int, lo_key: int,
                        shift: int, nbins: int, padded: bool, block: int = 1024,
-                       bf16_exact: bool = False) -> torch.Tensor:
+                       bf16_exact: bool = False, mesh=None) -> torch.Tensor:
     """One bisection level: int64 counts [nbins] of the valid similarity
     bit patterns in [lo_key, lo_key + nbins * 2^shift), one more sweep of
-    K1 stripes; the host walks them to the target rank."""
+    K1 stripes; the host walks them to the target rank.  Under ``mesh``
+    each rank sweeps its rows and the counts are summed over the ranks."""
     n_eff = n_valid if padded else feats.shape[0]
     bounds = _bin_bounds(lo_key, shift, nbins, feats.device)
     counts = torch.zeros(nbins + 2, dtype=torch.int64, device=feats.device)
-    for _, K_blk in _similarity_stripes(feats, pos, n_eff, lambda_h, lambda_g, bf16_exact, block):
+    for _, K_blk in _similarity_stripes(feats, pos, n_eff, lambda_h, lambda_g, bf16_exact, block,
+                                        _mesh_rows(mesh, feats.shape[0], n_eff)):
         counts += _count_bins(K_blk, bounds)
-    return counts[1:nbins + 1]
+    return all_reduce(mesh, counts)[1:nbins + 1]
 
 
 def _key_to_f32(key) -> np.float32:
@@ -432,25 +440,39 @@ def _exact_median_host(host: Dict, n_eff: int, refine) -> float:
 
 
 def _attach_exact_median(host, n_eff, feats, pos, lambda_h, lambda_g, padded,
-                         bf16_exact: bool = False):
+                         bf16_exact: bool = False, mesh=None):
     """Resolve the exact blockwise median of one slide and write it into
     ``host["K_stats"][4]`` (no-op when the build did not stream its
     statistics).  ``feats`` / ``pos`` are the slide's tensors as the build
     uploaded them and ``bf16_exact`` the build's flag: the refine sweeps
-    recompute the similarities, and their bit patterns must match."""
+    recompute the similarities, and their bit patterns must match.  Under
+    ``mesh`` each sweep runs over the rank's rows, its counts summed over
+    the ranks."""
     if "med_cnt" not in host:
         return
 
     def refine(lo_key, shift, nbins):
         return _median_level_pass(feats, pos, lambda_h, lambda_g, n_eff, lo_key, shift, nbins,
-                                  padded, bf16_exact=bf16_exact).cpu().numpy()
+                                  padded, bf16_exact=bf16_exact, mesh=mesh).cpu().numpy()
 
     host["K_stats"][4] = _exact_median_host(host, n_eff, refine)
 
 
+def _mesh_rows(mesh, n_rows: int, n_eff: int) -> Optional[Tuple[int, int]]:
+    """This rank's rows [lo, hi) of the valid block: its share of the patch
+    axis padded to a multiple of the mesh size (``_place_for_mesh``), cut
+    at ``n_eff``; None without a mesh (all rows)."""
+    if mesh is None:
+        return None
+    share = -(-n_rows // mesh.size)
+    lo = min(mesh.rank * share, n_eff)
+    return lo, min(lo + share, n_eff)
+
+
 def _blockwise_similarity_stats(feats, pos, lambda_h, lambda_g, labels: torch.Tensor,
                                 num_clusters: int, n_valid: int, padded: bool,
-                                block: int = 1024, bf16_exact: bool = False):
+                                block: int = 1024, bf16_exact: bool = False, mesh=None,
+                                stripes=None):
     """EXACT statistics of the valid [n_eff, n_eff] similarity without
     materialising it: K1 stripes [<= block, n_eff] (``_similarity_stripes``),
     each folded into its moments and extrema, the intra-cluster sums and
@@ -462,6 +484,13 @@ def _blockwise_similarity_stats(feats, pos, lambda_h, lambda_g, labels: torch.Te
     atomics: the sums are the same on every run).  Each stripe's moments
     are one ``var_mean`` pass, combined across stripes in float64.
 
+    Under ``mesh`` each rank folds the stripes of its rows
+    (``_mesh_rows``) and the results are reduced over the ranks: SUM for
+    the sums and counts, MIN / MAX for the extrema, and the moments
+    combined in float64 as across stripes.  ``stripes`` replaces the K1
+    stripes with given (first row, stripe) pairs (a rank's whole stripe of
+    the mesh's full-statistics build).
+
     Returns (sum, sumsq [float64], min, max, s_cc [C], diag_c [C], level-1
     counts [_MED_FANOUT] int64) over the valid entries."""
     dev = feats.device
@@ -472,10 +501,16 @@ def _blockwise_similarity_stats(feats, pos, lambda_h, lambda_g, labels: torch.Te
     bounds = _bin_bounds(0, _MED_L1_SHIFT, _MED_FANOUT, dev)
     hist = torch.zeros(_MED_FANOUT + 2, dtype=torch.int64, device=dev)
     s_cc = torch.zeros(num_clusters, dtype=torch.float32, device=dev)
-    diag_all = torch.empty(n_eff, dtype=torch.float32, device=dev)
-    parts, sizes = [], []
-    for r0, K_blk in _similarity_stripes(feats, pos, n_eff, lambda_h, lambda_g, bf16_exact, block):
+    diag_all = torch.zeros(n_eff, dtype=torch.float32, device=dev)
+    parts = [torch.tensor([0.0, 0.0, math.inf, -math.inf], dtype=torch.float32, device=dev)]
+    sizes = [0]
+    if stripes is None:
+        stripes = _similarity_stripes(feats, pos, n_eff, lambda_h, lambda_g, bf16_exact, block,
+                                      _mesh_rows(mesh, feats.shape[0], n_eff))
+    for r0, K_blk in stripes:
         rows = K_blk.shape[0]
+        if rows == 0:
+            continue
         var, mean = torch.var_mean(K_blk, correction=0)
         mn, mx = torch.aminmax(K_blk)
         parts.append(torch.stack([mean, var, mn, mx]))
@@ -485,12 +520,17 @@ def _blockwise_similarity_stats(feats, pos, lambda_h, lambda_g, labels: torch.Te
         hist += _count_bins(K_blk, bounds)
     p = torch.stack(parts).double()
     c = torch.as_tensor(sizes, dtype=torch.float64, device=dev)
-    total = c.sum()
-    mean = torch.sum(c * p[:, 0]) / total
-    m2 = torch.sum(c * (p[:, 1] + (p[:, 0] - mean) ** 2))
+    local = c.sum()
+    local_sum = torch.sum(c * p[:, 0])
+    total, tsum = all_reduce(mesh, torch.stack([local, local_sum]))
+    mean = tsum / total
+    m2 = all_reduce(mesh, torch.sum(c * (p[:, 1] + (p[:, 0] - mean) ** 2)))
     diag_c = onehot.T @ diag_all
-    return (mean * total, m2 + total * mean * mean, p[:, 2].min().float(), p[:, 3].max().float(),
-            s_cc, diag_c, hist[1:_MED_FANOUT + 1])
+    mn = all_reduce(mesh, p[:, 2].min().float(), "min")
+    mx = all_reduce(mesh, p[:, 3].max().float(), "max")
+    s_cc, diag_c = all_reduce(mesh, torch.stack([s_cc, diag_c]))
+    hist = all_reduce(mesh, hist)
+    return (mean * total, m2 + total * mean * mean, mn, mx, s_cc, diag_c, hist[1:_MED_FANOUT + 1])
 
 
 # ---------------------------------------------------------------------------
@@ -537,6 +577,7 @@ def _fused_build(
     block_stats: bool = False,
     bf16_exact: bool = False,
     init_centers: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Dict[str, torch.Tensor]:
     """The numeric pipeline of a chunk of B same-shape slides on the
     tensors' device; every output has a leading slide axis.  K1 (and K2
@@ -556,7 +597,21 @@ def _fused_build(
 
     ``init_centers`` maps "super", "group" and "hyperedge" to
     [B, N_INIT, k, D] starting centers for the three KMeans, replacing
-    their kmeans++ draws."""
+    their kmeans++ draws.
+
+    ``mesh`` (one slide, its whole rows gathered on every rank by
+    ``_dispatch_build``): the O(N^2) work is sharded by rows.  Each rank
+    runs K1 on its stripe of the valid block (``_mesh_rows``: one
+    [N/n, N] launch in full statistics, ``sharded_combined_similarity``;
+    [1024, N] stripes over its rows when streamed), its statistics are
+    reduced over the ranks (``_blockwise_similarity_stats``) and the exact
+    median is selected from bit-pattern counts summed over the ranks, so
+    it equals the unsharded one bit for bit.  Everything O(N * D) (the
+    KMeans, the super-patches, the grouping, the node KNN, the hyperedges)
+    runs whole on every rank from the same generators, so its outputs are
+    the unsharded build's."""
+    if mesh is not None and feats.shape[0] != 1:
+        raise ValueError("a mesh shards one slide's patch axis: build slides one at a time")
     if block_stats and full_stats:
         raise ValueError("block_stats streams the statistics that full_stats computes whole")
     if ship_cache and not full_stats:
@@ -576,12 +631,12 @@ def _fused_build(
         mask = torch.arange(n, device=dev)[None, :] < torch.as_tensor(n_valid, device=dev)[:, None]
 
     sel = None
-    if full_stats:
+    if full_stats and mesh is None:  # under a mesh: the rank's stripe, below
         K = torch.empty((b, n, n), dtype=torch.float32, device=dev)
         for i in range(b):
             combined_similarity_auto(feats[i], pos[i], lambda_h, lambda_g,
                                      bf16_exact=bf16_exact, out=K[i])
-    elif not block_stats:
+    elif not (full_stats or block_stats):
         # [S, S] subsample for statistics only (valid rows only when padded)
         s = min(2048, n)
         sel = _sample_rows(n_valid if padded else [n] * b, s, dev)
@@ -605,11 +660,35 @@ def _fused_build(
     # intra-cluster mean off-diagonal similarity:
     # s_cc = 1_c^T K 1_c ; off-diag mean = (s_cc - sum(diag K within c)) / (n_c^2 - n_c)
     out: Dict[str, torch.Tensor] = {}
-    if block_stats:
+    if mesh is not None and full_stats:
+        n_eff = n_valid[0] if padded else n
+        lo, hi = _mesh_rows(mesh, n, n_eff)
+        stripe = sharded_combined_similarity(
+            mesh, feats[0, lo:hi], pos[0, lo:hi], lambda_h, lambda_g, bf16_exact=bf16_exact,
+            columns=(feats[0, :n_eff], pos[0, :n_eff]))
+        labels_eff = torch.where(mask, km.labels, -1) if padded else km.labels
+        tsum, tsumsq, mn, mx, s_cc, diag_c, hist = _blockwise_similarity_stats(
+            feats[0], pos[0], lambda_h, lambda_g, labels_eff[0], num_super, n_eff, True,
+            mesh=mesh, stripes=[(lo, stripe)])
+        bounds_of = functools.partial(_bin_bounds, device=dev)
+        median = _exact_median_host(
+            {"med_cnt": hist.cpu().numpy()}, n_eff,
+            lambda lo_key, shift, nbins: all_reduce(
+                mesh, _count_bins(stripe, bounds_of(lo_key, shift, nbins)))[1:nbins + 1].cpu().numpy())
+        cnt = float(n_eff) ** 2
+        mean = tsum / cnt
+        std = torch.sqrt(torch.clamp_min(tsumsq / cnt - mean * mean, 0.0))
+        K_stats = torch.stack([mean.float(), std.float(), mn, mx,
+                               torch.tensor(median, dtype=torch.float32, device=dev)])[None]
+        s_cc, diag_c, stat_counts = s_cc[None], diag_c[None], counts
+        if ship_cache:
+            K = all_gather_rows(mesh, stripe)[None]
+    elif block_stats:
         labels_eff = torch.where(mask, km.labels, -1) if padded else km.labels
         parts = [
             _blockwise_similarity_stats(uploaded[i], pos[i], lambda_h, lambda_g, labels_eff[i],
-                                        num_super, n_valid[i], padded, bf16_exact=bf16_exact)
+                                        num_super, n_valid[i], padded, bf16_exact=bf16_exact,
+                                        mesh=mesh)
             for i in range(b)
         ]
         s_cc = torch.stack([p[4] for p in parts])
@@ -801,17 +880,19 @@ def _assemble_result(
 def _finalize_host(
     case_id, h5_rel_path, h5_path, n_patches, tma_features, host, save_similarity,
     num_wsi_super_patches, num_groups, hypergraph_k, num_hyperedges,
-    raise_errors: bool = False,
+    raise_errors: bool = False, write: bool = True,
 ):
     """Edge assembly + stats + HDF5 write for one slide's outputs; runs on
     a thread pool so it overlaps other slides' device work.  Errors are
-    isolated per file, except under ``raise_errors``."""
+    isolated per file, except under ``raise_errors``.  ``write=False`` (a
+    mesh rank other than 0) returns the stats without writing."""
     try:
         stats, arrays = _assemble_result(
             n_patches, tma_features, host, save_similarity, num_wsi_super_patches,
             num_groups, hypergraph_k, num_hyperedges,
         )
-        write_hypergraph_group(h5_path, arrays, stats=stats)
+        if write:
+            write_hypergraph_group(h5_path, arrays, stats=stats)
         if case_id is not None:
             stats["case_id"] = case_id
             stats["h5_path"] = h5_rel_path
@@ -864,6 +945,22 @@ def _stacked(arrays) -> torch.Tensor:
     return torch.as_tensor(np.stack([np.asarray(a) for a in arrays]))
 
 
+def _place_for_mesh(mesh, feats: np.ndarray, pos: np.ndarray):
+    """This rank's row block of one slide's patch axis, zero-padded up to
+    a multiple of the mesh size (counterpart of the JAX build's
+    ``_place_for_mesh``): (feature rows, position rows, padded).  The pad
+    rows lie outside the valid block, so no statistic and no KMeans sees
+    them (the JAX package's masked build)."""
+    n = feats.shape[0]
+    n_pad = -(-n // mesh.size) * mesh.size
+    pad = n_pad != n
+    if pad:
+        feats = np.concatenate([feats, np.zeros((n_pad - n,) + feats.shape[1:], feats.dtype)])
+        pos = np.concatenate([pos, np.zeros((n_pad - n,) + pos.shape[1:], pos.dtype)])
+    rows = rows_of(mesh, n_pad)
+    return feats[rows], pos[rows], pad
+
+
 @dataclass
 class _Dispatched:
     """A chunk whose build was launched: per-slide valid counts, the host
@@ -876,17 +973,23 @@ class _Dispatched:
     pos: Optional[torch.Tensor] = None
     padded: bool = False
     bf16_exact: bool = False
+    mesh: object = None
 
 
 def _dispatch_build(
     slides, device, num_wsi_super_patches, num_groups, hypergraph_k,
     num_hyperedges, lambda_h, lambda_g, seed, save_similarity, bucket_patches,
-    upload_dtype, init_centers=None,
+    upload_dtype, init_centers=None, mesh=None,
 ) -> _Dispatched:
     """Upload a chunk of slides [(features, positions, tma), ...] whose
     arrays share their shapes once bucketed, run ``_fused_build`` once for
     the chunk and start the copies back.  Every slide draws from its own
-    three generators, seeded from ``seed`` as a slide built alone is."""
+    three generators, seeded from ``seed`` as a slide built alone is.
+
+    Under ``mesh`` (one slide) each rank uploads its row block
+    (``_place_for_mesh``) and the blocks are all-gathered into the whole
+    slide on every rank, for the replicated O(N * D) stages and as the
+    column copies of the rank's K1 stripes."""
     if bucket_patches and save_similarity:
         raise ValueError(
             "bucket_patches requires save_similarity=False (the persisted "
@@ -904,20 +1007,35 @@ def _dispatch_build(
     full_stats, block_stats = _stats_modes(save_similarity, feats[0].shape[0])
     dt = _upload_dt(upload_dtype)
     bf16_exact = upload_dtype == "bfloat16"
-    feats_dev = _stacked(feats).to(device=device, dtype=dt)
-    pos_dev = _stacked([np.asarray(p, np.float32) for p in pos]).to(device)
+    if mesh is not None:
+        if len(slides) != 1:
+            raise ValueError("a mesh shards one slide's patch axis: build slides one at a time")
+        n_rows = feats[0].shape[0]
+        f_rows, p_rows, mesh_pad = _place_for_mesh(mesh, np.asarray(feats[0]),
+                                                   np.asarray(pos[0], np.float32))
+        if mesh_pad and save_similarity:
+            raise ValueError(
+                "mesh-sharded build needs the patch count to divide the mesh size when "
+                "save_similarity=True (the persisted cache keeps exact shapes); use "
+                "save_similarity=False")
+        feats_dev = all_gather_rows(mesh, torch.as_tensor(f_rows).to(device=device, dtype=dt))
+        pos_dev = all_gather_rows(mesh, torch.as_tensor(p_rows).to(device))
+        feats_dev, pos_dev = feats_dev[None, :n_rows], pos_dev[None, :n_rows]
+    else:
+        feats_dev = _stacked(feats).to(device=device, dtype=dt)
+        pos_dev = _stacked([np.asarray(p, np.float32) for p in pos]).to(device)
     out = _fused_build(
         [_generators(seed, device) for _ in slides], feats_dev, pos_dev,
         _stacked([t for _, _, t in slides]).to(device=device, dtype=dt),
         n_valid, lambda_h, lambda_g,
         num_wsi_super_patches, num_groups, hypergraph_k, num_hyperedges,
         full_stats=full_stats, ship_cache=save_similarity, padded=padded,
-        block_stats=block_stats, bf16_exact=bf16_exact, init_centers=init_centers,
+        block_stats=block_stats, bf16_exact=bf16_exact, init_centers=init_centers, mesh=mesh,
     )
     host, event = _to_host_start(out)
     if not block_stats:
         return _Dispatched(n_valid, host, event)
-    return _Dispatched(n_valid, host, event, feats_dev, pos_dev, padded, bf16_exact)
+    return _Dispatched(n_valid, host, event, feats_dev, pos_dev, padded, bf16_exact, mesh)
 
 
 def _collect(d: _Dispatched, lambda_h, lambda_g) -> List[Dict[str, np.ndarray]]:
@@ -928,7 +1046,7 @@ def _collect(d: _Dispatched, lambda_h, lambda_g) -> List[Dict[str, np.ndarray]]:
     for i, h in enumerate(slides):
         if d.feats is not None:
             _attach_exact_median(h, d.n_valid[i], d.feats[i], d.pos[i], lambda_h, lambda_g,
-                                 d.padded, bf16_exact=d.bf16_exact)
+                                 d.padded, bf16_exact=d.bf16_exact, mesh=d.mesh)
     return slides
 
 
@@ -948,6 +1066,7 @@ def process_arrays(
     upload_dtype: str = "float32",
     device=None,
     init_centers: Optional[Dict[str, torch.Tensor]] = None,
+    mesh=None,
 ) -> Dict:
     """Build one slide's hypergraph from in-memory arrays, writing nothing.
 
@@ -955,14 +1074,16 @@ def process_arrays(
     arrays by key, "host": the device outputs as numpy (super-patch
     ``labels``, ``K_stats``, ``intra_mean``, ``sim``, ...)}.
     ``init_centers`` maps "super", "group" and "hyperedge" to [N_INIT, k, D]
-    starting centers."""
-    dev = resolve_device(device)
+    starting centers.  ``mesh``: the slide's patch axis sharded over the
+    mesh's ranks (``_fused_build``); every rank returns the same result."""
+    dev = _build_device(mesh, device)
     tma_features = np.asarray(tma_features, np.float32)
     d = _dispatch_build(
         [(wsi_features, wsi_positions, tma_features)], dev, num_wsi_super_patches,
         num_groups, hypergraph_k, num_hyperedges, lambda_h, lambda_g, seed,
         save_similarity, bucket_patches, upload_dtype,
         None if init_centers is None else {k: v[None] for k, v in init_centers.items()},
+        mesh,
     )
     host = _collect(d, lambda_h, lambda_g)[0]
     stats, arrays = _assemble_result(
@@ -990,10 +1111,10 @@ def process_single_file(
     init_centers: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Dict:
     """Build one HDF5 file's hypergraph and write its ``hypergraph/`` group;
-    errors raise."""
-    if mesh is not None:
-        raise _not_ported("mesh (intra-slide sharding)", "mesh")
-    dev = resolve_device(device)
+    errors raise.  ``mesh``: the slide's patch axis sharded over the mesh's
+    ranks; rank 0 writes the group while the others wait, and every rank
+    returns the stats."""
+    dev = _build_device(mesh, device)
     wsi_features, wsi_positions = load_wsi_data(h5_path)
     tma_features = load_tma_data(h5_path)
     if tma_features is None:
@@ -1003,12 +1124,20 @@ def process_single_file(
         num_groups, hypergraph_k, num_hyperedges, lambda_h, lambda_g, seed,
         save_similarity, bucket_patches, upload_dtype,
         None if init_centers is None else {k: v[None] for k, v in init_centers.items()},
+        mesh,
     )
-    return _finalize_host(
+    stats = _finalize_host(
         None, None, h5_path, d.n_valid[0], tma_features, _collect(d, lambda_h, lambda_g)[0],
         save_similarity, num_wsi_super_patches, num_groups, hypergraph_k,
-        num_hyperedges, raise_errors=True,
+        num_hyperedges, raise_errors=True, write=mesh is None or mesh.is_main,
     )
+    barrier(mesh)
+    return stats
+
+
+def _build_device(mesh, device) -> torch.device:
+    """The build's device: the mesh rank's under a mesh."""
+    return resolve_device(device) if mesh is None else mesh.device
 
 
 def _read_csv_rows(csv_path) -> List[Dict[str, str]]:
@@ -1023,7 +1152,7 @@ def _case_of(idx, row) -> str:
     return str(row.get("case_id") or f"case_{idx}")
 
 
-def _summary(all_stats, t0, dev, output_stats_path):
+def _summary(all_stats, t0, dev, output_stats_path, write: bool = True):
     total_patches = sum(s.get("num_patches_processed", 0) for s in all_stats)
     elapsed = time.time() - t0
     summary = {
@@ -1033,7 +1162,7 @@ def _summary(all_stats, t0, dev, output_stats_path):
         "patches_per_sec": total_patches / elapsed if elapsed > 0 else 0.0,
         "device": str(dev),
     }
-    if output_stats_path:
+    if output_stats_path and write:
         Path(output_stats_path).write_text(
             json.dumps({"summary": summary, "files": all_stats}, indent=2, default=_json_default)
         )
@@ -1066,7 +1195,13 @@ def process_dataset(
     so they overlap later slides.  ``file_batch > 1`` builds chunks of
     same-shape files at once (``_process_dataset_batched``).  Results come
     back in CSV order; per-file errors are isolated.  Returns (per-file
-    stats, summary)."""
+    stats, summary).
+
+    ``mesh``: shard each slide's patch axis over the mesh's ranks
+    (``_fused_build``), intra-slide parallelism, exclusive with
+    ``file_batch``.  Every rank reads each file and builds it with the
+    others; rank 0 writes the groups and the stats file, and the others
+    wait for it at a barrier before returning."""
     _upload_dt(upload_dtype)
     if bucket_patches and save_similarity:
         raise ValueError(
@@ -1074,9 +1209,13 @@ def process_dataset(
             "[N,N] cache keeps exact shapes) — pass save_similarity=False / "
             "--no_save_similarity"
         )
-    if mesh is not None:
-        raise _not_ported("mesh (intra-slide sharding)", "mesh")
-    dev = resolve_device(device)
+    if mesh is not None and file_batch > 1:
+        raise ValueError(
+            "mesh (intra-slide sharding) and file_batch (inter-file batching) are mutually "
+            "exclusive"
+        )
+    dev = _build_device(mesh, device)
+    is_main = mesh is None or mesh.is_main
     rows = list(enumerate(_read_csv_rows(csv_path)))
 
     all_stats: list = []
@@ -1094,6 +1233,7 @@ def process_dataset(
             else:
                 keep.append((idx, row))
         rows = keep
+        barrier(mesh)  # every rank has read the files before rank 0 writes
     t0 = time.time()
     build_args = (num_wsi_super_patches, num_groups, hypergraph_k, num_hyperedges, lambda_h,
                   lambda_g, seed, save_similarity, bucket_patches, upload_dtype)
@@ -1112,7 +1252,8 @@ def process_dataset(
         tma_features = load_tma_data(h5_path)
         if tma_features is None:
             return (idx, row, h5_path, None, None)
-        d = _dispatch_build([(wsi_features, wsi_positions, tma_features)], dev, *build_args)
+        d = _dispatch_build([(wsi_features, wsi_positions, tma_features)], dev, *build_args,
+                            mesh=mesh)
         return (idx, row, h5_path, tma_features, d)
 
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -1131,7 +1272,7 @@ def process_dataset(
             fut = pool.submit(
                 _finalize_host, case_id, row["h5_file_path"], h5_path, d.n_valid[0],
                 tma_features, host, save_similarity, num_wsi_super_patches,
-                num_groups, hypergraph_k, num_hyperedges,
+                num_groups, hypergraph_k, num_hyperedges, write=is_main,
             )
             results.append((fut, None))
 
@@ -1150,7 +1291,8 @@ def process_dataset(
             drain(pending.popleft())
         for fut, immediate in results:
             all_stats.append(immediate if fut is None else fut.result())
-    return all_stats, _summary(all_stats, t0, dev, output_stats_path)
+    barrier(mesh)
+    return all_stats, _summary(all_stats, t0, dev, output_stats_path, write=is_main)
 
 
 # A batched build's [B, N, N] similarity stays under ~4 GB f32, and at most

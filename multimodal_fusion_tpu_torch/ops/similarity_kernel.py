@@ -13,7 +13,8 @@ lambda_h folded into the row and column norms and the dot coefficient,
 features staged in bf16 under ``bf16_exact`` (lossless by precondition).
 ``similarity_rect_plain`` repeats that staging in PyTorch, with its feature
 term evaluated in float64; it is what CPU tensors get and what the kernel is
-held against on the card.
+held against on the card.  ``sharded_combined_similarity`` runs K1 on one
+mesh rank's row stripe of the patch axis (the mesh build).
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ from typing import Optional
 import torch
 
 from multimodal_fusion_tpu_torch.ops import _cuda
+from multimodal_fusion_tpu_torch.parallel.mesh import all_gather_rows
 
 
 def similarity_rect_plain(
@@ -153,12 +155,43 @@ def combined_similarity_auto(
     lambda_g: float = 1.0,
     bf16_exact: bool = False,
     out: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> torch.Tensor:
     """The build's square [N, N] similarity (counterpart of both
     ``pallas_combined_similarity`` and the ``combined_similarity_auto``
     dispatcher).  On CUDA, K1 at every N: the TPU's ``MIN_PALLAS_N = 1024``
     crossover was a TPU measurement and does not carry over.  On the CPU,
-    K1's plain version."""
+    K1's plain version.  Under ``mesh``, ``features`` / ``positions`` are
+    the rank's row block and the result its row stripe
+    (``sharded_combined_similarity``)."""
+    if mesh is not None:
+        stripe = sharded_combined_similarity(mesh, features, positions, lambda_h, lambda_g,
+                                             bf16_exact)
+        return stripe if out is None else out.copy_(stripe)
     return similarity_rect(
         features, positions, features, positions, lambda_h, lambda_g, bf16_exact, out
     )
+
+
+def sharded_combined_similarity(
+    mesh,
+    features: torch.Tensor,
+    positions: torch.Tensor,
+    lambda_h: float = 1.0,
+    lambda_g: float = 1.0,
+    bf16_exact: bool = False,
+    columns=None,
+) -> torch.Tensor:
+    """This rank's row stripe [M, N] of the mesh-sharded [N, N] combined
+    similarity (counterpart of ``pallas_similarity.sharded_combined_similarity``):
+    ``features`` / ``positions`` are the rank's row block of the patch
+    axis, the column copies are all-gathered over the mesh (``columns``
+    passes them where the caller holds them already, e.g. cut to the valid
+    rows), and K1 runs on the stripe, as it runs on the whole [N, N]
+    unsharded, so every element has the unsharded K's bits.  The row
+    blocks of an all-gather have one size on every rank: callers pad the
+    patch axis to a multiple of the mesh size (``build._place_for_mesh``)."""
+    if columns is None:
+        columns = (all_gather_rows(mesh, features), all_gather_rows(mesh, positions))
+    return similarity_rect(features, positions, columns[0], columns[1], lambda_h, lambda_g,
+                           bf16_exact)

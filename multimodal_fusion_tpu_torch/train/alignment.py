@@ -25,8 +25,16 @@ Execution, as the JAX trainer runs it:
 - the match predictor's dropout draws from a ``torch.Generator`` on the
   run's device seeded with ``seed`` (jax.random's draws cannot be
   reproduced);
-- ``mesh_shape`` is not ported yet and raises ``NotImplementedError``
-  naming ROADMAP Queue 1 item 16.
+- ``mesh_shape`` ({"data": N} or {"replica": R, "data": N}) trains data
+  parallel over the ranks of a launch (``parallel.mesh``): each rank runs
+  the alignment layers on its rows of the batch and of the negatives (a
+  leaf whose rows do not divide the mesh, such as a small negative pool,
+  stays whole), the aligned rows are gathered, and every rank computes the
+  batch's loss whole (the rank-1 SVD and volume losses couple all the
+  batch's rows), with the match predictor's dropout drawn by every rank
+  from its copy of the generator, kept in step; the loss is divided by the
+  mesh size and the gradients summed.  Validation runs whole on every
+  rank; rank 0 writes the checkpoints and logs.
 
 Per-step losses stay on the device until the next validation boundary.
 """
@@ -47,6 +55,12 @@ from multimodal_fusion_tpu_torch.ops.losses import (
     binary_cross_entropy,
     rank1_svd_loss_from_dict,
     volume_loss,
+)
+from multimodal_fusion_tpu_torch.parallel.mesh import (
+    all_gather_rows_dict,
+    all_reduce_grads,
+    mesh_from_shape,
+    place_batch,
 )
 from multimodal_fusion_tpu_torch.train.checkpoint import save_model
 from multimodal_fusion_tpu_torch.train.optim import set_lr
@@ -92,11 +106,10 @@ class MultiModalAlignmentTrainer:
             raise ValueError(f"unsupported loss type {loss_type}")
         if svd_impl not in ("gram", "svd"):
             raise ValueError(f"unsupported svd impl {svd_impl}")
-        if mesh_shape:
-            raise NotImplementedError("mesh_shape (data parallelism) is not ported yet: "
-                                      "ROADMAP Queue 1 item 16")
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = mesh_from_shape(mesh_shape, self.device)
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.loss_type = loss_type
         self.svd_impl = svd_impl
         self.tau1, self.tau2 = tau1, tau2
@@ -115,7 +128,7 @@ class MultiModalAlignmentTrainer:
         # one CSV row per validation interval, flushed at once (reference
         # tqdm live postfix + val logging, alignment/trainer.py:334-342)
         self.scalars = None
-        if scalar_log_path is not None:
+        if scalar_log_path is not None and self.is_main:
             from multimodal_fusion_tpu_torch.utils.scalars import ScalarWriter
 
             self.scalars = ScalarWriter(scalar_log_path)
@@ -134,17 +147,27 @@ class MultiModalAlignmentTrainer:
 
     # ------------------------------------------------------------------
 
+    def _aligned(self, batch: Dict[str, torch.Tensor], rows: Optional[int]):
+        """The alignment layers on ``batch``; where it holds this rank's
+        share of ``rows`` rows, the whole batch's aligned rows, gathered."""
+        aligned = self.model(batch)
+        if rows is not None and next(iter(batch.values())).shape[0] != rows:
+            aligned = all_gather_rows_dict(self.mesh, aligned)
+        return aligned
+
     def _loss(self, pos: Dict[str, torch.Tensor], neg: Optional[Dict[str, torch.Tensor]],
-              generator: Optional[torch.Generator], train: bool):
-        """(loss, svd_values) of one batch; ``neg`` None leaves out loss_IM."""
-        aligned = self.model(pos)
+              generator: Optional[torch.Generator], train: bool, rows=(None, None)):
+        """(loss, svd_values) of one batch; ``neg`` None leaves out loss_IM.
+        ``rows``: the batch's and the negatives' row counts where ``pos`` and
+        ``neg`` hold this rank's rows of them (``_step``)."""
+        aligned = self._aligned(pos, rows[0])
         if self.loss_type == "rank1":
             loss, svd_vals = rank1_svd_loss_from_dict(
                 aligned, self.tau1, self.tau2, self.lambda1, self.loss2_chunk_size,
                 impl=self.svd_impl,
             )
             if self.lambda2 != 0 and neg is not None:
-                aligned_neg = self.model(neg)
+                aligned_neg = self._aligned(neg, rows[1])
                 # insertion order (the collate's modality_names), the
                 # reference's torch.cat(feat_dict.values()) layout: the
                 # frozen predictor's input blocks must line up
@@ -164,11 +187,19 @@ class MultiModalAlignmentTrainer:
 
     def _step(self, pos, neg, lr: float, generator: Optional[torch.Generator]):
         """One AdamW update at ``lr``; returns (loss, svd_values), detached
-        and left on the device."""
-        loss, svd_vals = self._loss(pos, neg, generator, train=True)
-        grads = torch.autograd.grad(loss, self.params)
+        and left on the device.  Under a mesh each rank keeps its rows of
+        ``pos`` and ``neg`` (per leaf), and the loss every rank computes
+        whole is divided by the mesh size before the gradients are summed."""
+        rows, n = (None, None), 1
+        if self.mesh is not None:
+            n = self.mesh.size
+            rows = tuple(None if b is None else next(iter(b.values())).shape[0] for b in (pos, neg))
+            pos, neg = place_batch(self.mesh, pos), place_batch(self.mesh, neg)
+        loss, svd_vals = self._loss(pos, neg, generator, train=True, rows=rows)
+        grads = torch.autograd.grad(loss / n, self.params)
         for p, g in zip(self.params, grads):
             p.grad = g
+        all_reduce_grads(self.mesh, self.params)
         set_lr(self.optimizer, lr)
         self.optimizer.step()
         return loss.detach(), svd_vals.detach()
@@ -307,7 +338,7 @@ class MultiModalAlignmentTrainer:
                 self.timer.record("train_step", self._sync_time(t_step))
             step_i += 1
 
-            if save_interval and save_path and step_i % save_interval == 0:
+            if save_interval and save_path and step_i % save_interval == 0 and self.is_main:
                 save_model(f"{save_path}.step_{step_i}", self.model)
 
             # the reference validates only on val_interval multiples
@@ -328,13 +359,13 @@ class MultiModalAlignmentTrainer:
                         "val_loss": val_loss,
                         "svd_top": svd_last[0] if svd_last else float("nan"),
                     })
-                if verbose:
+                if verbose and self.is_main:
                     print(f"step {step_i}: train={self.history['train_loss'][-1]:.4f} "
                           f"val={val_loss:.4f}")
                 # reference order (trainer.py:768-776): the best checkpoint on
                 # a plain improvement; min_delta gates only the early-stop
                 # bookkeeping (which alone updates best_val_loss)
-                if val_loss < self.best_val_loss and save_path:
+                if val_loss < self.best_val_loss and save_path and self.is_main:
                     save_model(save_path, self.model, extra={"step": step_i - 1})
                 if val_loss < self.best_val_loss - self.min_delta:
                     self.best_val_loss = val_loss
@@ -376,6 +407,8 @@ class MultiModalAlignmentTrainer:
 
     def save_history(self, path: str | Path, config: Optional[Dict] = None):
         """``.history.json`` dump (reference run.py:192-224)."""
+        if not self.is_main:
+            return
         payload = {"history": self.history, "best_val_loss": self.best_val_loss}
         if config:
             payload["config"] = config

@@ -42,8 +42,20 @@ Execution options (``ExperimentConfig``):
   the same numbers and the gradients equal those without remat.  A model
   with one bag branch (CLAM, AUC-CLAM) marks no segment: checkpointing its
   whole forward would lower no peak.
-- ``mesh_shape`` is not ported yet and raises ``NotImplementedError``
-  naming ROADMAP Queue 1 item 16.
+- ``mesh_shape`` ({"data": N} or {"replica": R, "data": N}) trains data
+  parallel over the ranks of a ``torchrun`` (or ``parallel.multihost``)
+  launch (``parallel.mesh``): every rank builds the same window and keeps
+  its rows (a window whose size does not divide the mesh stays whole on
+  every rank), case losses are summed locally, the group losses read the
+  window's rows gathered from every rank, and the gradients are summed
+  over the ranks before each step (``window_step``).  With the device
+  tables each rank gathers only its rows of a window; evaluation gathers
+  the outputs in case order.  Rank 0 writes the checkpoints, logs and
+  results.  A world smaller than the shape trains unsharded, with the JAX
+  package's message.  At dropout 0 a sharded run equals the unsharded one;
+  with dropout every rank draws from its own copy of the generator, so its
+  draws differ from the unsharded run's (the ranks' parameters stay
+  identical).
 
 Dropout draws from a ``torch.Generator`` on the run's device seeded like
 the JAX trainer's key (``seed * 1000 + fold``); the draws differ from
@@ -68,6 +80,16 @@ from multimodal_fusion_tpu_torch.data.batching import make_window, pad_case, win
 from multimodal_fusion_tpu_torch.data.splits import FoldSplit, WeightedRandomSampler, save_fold_split
 from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.models.factory import ModelFactory
+from multimodal_fusion_tpu_torch.parallel.mesh import (
+    all_gather_rows_dict,
+    all_reduce,
+    all_reduce_grads,
+    barrier,
+    divides,
+    mesh_from_shape,
+    place_batch,
+    rows_of,
+)
 from multimodal_fusion_tpu_torch.train.checkpoint import load_model, save_model
 from multimodal_fusion_tpu_torch.train.metrics import accuracy, binary_auroc, multiclass_auroc_macro
 from multimodal_fusion_tpu_torch.train.optim import LRSchedule, make_optimizer, set_lr
@@ -134,6 +156,48 @@ def _tree_leaves(tree) -> List[Any]:
     return [tree]
 
 
+def window_step(model, optimizer, window, generator, mesh=None, remat: bool = False,
+                n_cases: Optional[int] = None) -> torch.Tensor:
+    """One window update: ``(sum of the case losses + the group loss) / G``
+    and one optimizer step; returns the window's mean case loss (0-d,
+    detached).
+
+    Under ``mesh`` the window holds this rank's rows of the ``n_cases``
+    window's cases, or the whole window where it does not divide the mesh.
+    Case losses are summed locally (divided by the mesh size where every
+    rank holds the whole window); the group loss reads the window's
+    results gathered from every rank, and every rank computes it whole, so
+    it is divided by the mesh size (the gather's backward sums the ranks'
+    gradients); the gradients are then summed over the mesh, which gives
+    every rank the unsharded window's gradient."""
+    labels = window["label"]
+    G = labels.shape[0] if n_cases is None else n_cases
+    n = 1 if mesh is None else mesh.size
+    sharded = mesh is not None and labels.shape[0] != G
+    case = {"channels": window["channels"], "masks": window["masks"]}
+
+    model.remat = remat
+    res = model(case, labels, generator=generator, train=True)
+    losses = model.loss_fn(res["logits"], labels, res)
+    total = losses.sum() if sharded or n == 1 else losses.sum() / n
+    if model.has_group_loss():
+        group = dict(res, label=labels)
+        if "time" in window:  # the Cox partial likelihood's inputs
+            group["time"], group["event"] = window["time"], window["event"]
+        if sharded:
+            per_case = {k: v for k, v in group.items()
+                        if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == labels.shape[0]}
+            group.update(all_gather_rows_dict(mesh, per_case))
+        total = total + model.group_loss_fn(group) / n
+    optimizer.zero_grad(set_to_none=True)
+    (total / G).backward()
+    all_reduce_grads(mesh, [p for p in model.parameters()])
+    optimizer.step()
+    if sharded:
+        return all_reduce(mesh, losses.detach().sum()) / G
+    return losses.detach().mean()
+
+
 def _group_eval(model):
     """The validation group loss of a ``stashes_group_logits`` model, bound
     to its group-loss parameters as they are now (before training), as the
@@ -146,15 +210,18 @@ def _group_eval(model):
 
 class SurvivalTrainer:
     def __init__(self, configs: Configs, log_dir: Union[str, Path],
-                 device: Optional[Union[str, torch.device]] = None):
+                 device: Optional[Union[str, torch.device]] = None, mesh=None):
         self.configs = configs
         self.exp = configs.experiment_config
         self.device = resolve_device(device)
         self.log_dir = Path(log_dir)
         self.log_dir.mkdir(parents=True, exist_ok=True)
-        if self.exp.mesh_shape:
-            raise NotImplementedError("mesh_shape (data parallelism) is not ported yet: "
-                                      "ROADMAP Queue 1 item 16")
+        # data parallelism over the launch's ranks (module docstring); a
+        # caller that built the mesh already passes it
+        self.mesh = mesh if mesh is not None else mesh_from_shape(self.exp.mesh_shape, self.device)
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        self.is_main = self.mesh is None or self.mesh.is_main
         self.remat = bool(self.exp.get("remat", False))
         # evaluation dtype (None: the parameters' float32)
         self.compute_dtype = (torch.bfloat16 if configs.model_config.get("compute_dtype", "float32")
@@ -312,25 +379,11 @@ class SurvivalTrainer:
     # ------------------------------------------------------------------
 
     def _train_step(self, model, optimizer, window, generator) -> torch.Tensor:
-        """One window update: ``(sum of the case losses + the group loss) /
-        G``; returns the window's mean case loss (a 0-d tensor left on the
-        device)."""
-        labels = window["label"]
-        case = {"channels": window["channels"], "masks": window["masks"]}
-
-        model.remat = self.remat
-        res = model(case, labels, generator=generator, train=True)
-        losses = model.loss_fn(res["logits"], labels, res)
-        total = losses.sum()
-        if model.has_group_loss():
-            group = dict(res, label=labels)
-            if "time" in window:  # the Cox partial likelihood's inputs
-                group["time"], group["event"] = window["time"], window["event"]
-            total = total + model.group_loss_fn(group)
-        optimizer.zero_grad(set_to_none=True)
-        (total / labels.shape[0]).backward()
-        optimizer.step()
-        return losses.detach().mean()
+        """One window update (``window_step``) on this rank's rows of
+        ``window`` under a mesh."""
+        n_cases = window["label"].shape[0]
+        return window_step(model, optimizer, place_batch(self.mesh, window, batch_size=n_cases),
+                           generator, self.mesh, self.remat, n_cases)
 
     def _compute_model(self, model):
         """``model`` itself, or under ``compute_dtype="bfloat16"`` a bfloat16
@@ -360,6 +413,16 @@ class SurvivalTrainer:
         out = (res["logits"], res["probabilities"], res["predictions"], losses, risk)
         return tuple(t.float() if t.is_floating_point() else t for t in out)
 
+    def _eval_window_placed(self, model, window, n_cases: int, generator=None, drop_prob=None):
+        """``_eval_window`` on ``window``, this rank's rows of an
+        ``n_cases`` window under a mesh (or all of it), the outputs gathered
+        back in case order."""
+        out = self._eval_window(model, window, generator, drop_prob)
+        if window["label"].shape[0] == n_cases:
+            return out
+        got = all_gather_rows_dict(self.mesh, dict(enumerate(out)))
+        return tuple(got[i] for i in range(len(out)))
+
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
@@ -383,9 +446,13 @@ class SurvivalTrainer:
             patient_ids = [dataset.case_ids[int(i)] for i in indices]
             labels = [np.asarray(dataset.labels)[np.asarray(indices, int)]]
             for s in range(0, len(rows), G):
-                idx = rows[s : s + G].to(self.device)
-                outs.append(self._eval_window(model, self._gather_window(tables, idx), generator,
-                                              drop_prob))
+                idx = rows[s : s + G]
+                n_cases = len(idx)
+                if divides(self.mesh, n_cases):
+                    idx = idx[rows_of(self.mesh, n_cases)]
+                outs.append(self._eval_window_placed(
+                    model, self._gather_window(tables, idx.to(self.device)), n_cases, generator,
+                    drop_prob))
         else:
             patient_ids, labels = [], []
             for chunk, window in self._windows(dataset, indices, G):
@@ -393,7 +460,9 @@ class SurvivalTrainer:
                 window.pop("event", None)
                 labels.append(np.asarray(window["label"]))
                 patient_ids.extend(chunk)
-                outs.append(self._eval_window(model, self._to_device(window), generator, drop_prob))
+                n_cases = len(window["label"])
+                placed = self._to_device(place_batch(self.mesh, window, batch_size=n_cases))
+                outs.append(self._eval_window_placed(model, placed, n_cases, generator, drop_prob))
         return self._eval_summary(dataset, outs, labels, patient_ids, group_eval)
 
     def _eval_summary(self, dataset, outs, all_labels, patient_ids,
@@ -442,7 +511,8 @@ class SurvivalTrainer:
 
     def train_fold(self, dataset, split: FoldSplit, fold_idx: int) -> Dict[str, Any]:
         exp = self.exp
-        save_fold_split(split, dataset.case_ids, self.log_dir / f"splits_{fold_idx}.csv")
+        if self.is_main:
+            save_fold_split(split, dataset.case_ids, self.log_dir / f"splits_{fold_idx}.csv")
 
         model = self._build_model(fold_idx)
         group_eval = _group_eval(model)
@@ -468,7 +538,8 @@ class SurvivalTrainer:
         ckpt_path = self.log_dir / f"s_{fold_idx}_checkpoint.npz"
         generator = torch.Generator(device=self.device).manual_seed(exp.seed * 1000 + fold_idx)
         history: List[Dict[str, float]] = []
-        logger = FoldLogger(self.log_dir, fold_idx, self.configs.model_config.n_classes)
+        logger = (FoldLogger(self.log_dir, fold_idx, self.configs.model_config.n_classes)
+                  if self.is_main else None)
 
         for epoch in range(exp.max_epochs):
             t0 = time.time()
@@ -483,12 +554,19 @@ class SurvivalTrainer:
             if tables is not None:
                 rows = torch.as_tensor([row_of[int(i)] for i in order], dtype=torch.int64)
                 for s in range(0, len(rows), exp.batch_size):
-                    window = self._gather_window(tables, rows[s : s + exp.batch_size].to(self.device))
-                    epoch_losses.append(self._train_step(model, optimizer, window, generator))
+                    idx = rows[s : s + exp.batch_size]
+                    n_cases = len(idx)
+                    if divides(self.mesh, n_cases):
+                        idx = idx[rows_of(self.mesh, n_cases)]  # this rank's rows only
+                    window = self._gather_window(tables, idx.to(self.device))
+                    epoch_losses.append(window_step(model, optimizer, window, generator,
+                                                    self.mesh, self.remat, n_cases))
             else:
                 for _, window in self._windows_prefetched(dataset, order, exp.batch_size):
-                    epoch_losses.append(
-                        self._train_step(model, optimizer, self._to_device(window), generator))
+                    n_cases = len(window["label"])
+                    placed = self._to_device(place_batch(self.mesh, window, batch_size=n_cases))
+                    epoch_losses.append(window_step(model, optimizer, placed, generator,
+                                                    self.mesh, self.remat, n_cases))
             losses_np = torch.stack(epoch_losses).cpu().numpy() if epoch_losses else np.asarray([])
 
             val = self._evaluate(dataset, split.val_idx, model, tables, row_of,
@@ -496,7 +574,7 @@ class SurvivalTrainer:
             metric = val[exp.monitor_metric]
             schedule.plateau_step(val["loss"])
             improved = stopper.step(epoch, metric)
-            if improved and use_early_stop:
+            if improved and use_early_stop and self.is_main:
                 save_model(ckpt_path, model)
             history.append({
                 "epoch": epoch,
@@ -507,8 +585,9 @@ class SurvivalTrainer:
                 "val_acc": val["acc"],
                 "time_s": time.time() - t0,
             })
-            logger.log_epoch(epoch, lr, history[-1]["train_loss"], val, history[-1]["time_s"])
-            if exp.get("verbose", True):
+            if logger is not None:
+                logger.log_epoch(epoch, lr, history[-1]["train_loss"], val, history[-1]["time_s"])
+            if exp.get("verbose", True) and self.is_main:
                 h = history[-1]
                 print(f"fold {fold_idx} epoch {epoch}: train_loss={h['train_loss']:.4f} "
                       f"val_loss={h['val_loss']:.4f} val_auc={h['val_auc']:.4f}")
@@ -516,9 +595,10 @@ class SurvivalTrainer:
                 break
 
         if use_early_stop:
+            barrier(self.mesh)  # rank 0 wrote the checkpoint
             if ckpt_path.exists():  # restore the best checkpoint
                 load_model(ckpt_path, model)
-        else:
+        elif self.is_main:
             # reference without the flag: persist and evaluate the final weights
             save_model(ckpt_path, model)
 
@@ -539,10 +619,11 @@ class SurvivalTrainer:
             "test_acc": test["acc"],
             "history": history,
         }
-        (self.log_dir / f"fold_{fold_idx}_summary.json").write_text(
-            json.dumps({**summary, "patient_results": patient_results}, indent=2)
-        )
-        logger.finalize(summary)
+        if self.is_main:
+            (self.log_dir / f"fold_{fold_idx}_summary.json").write_text(
+                json.dumps({**summary, "patient_results": patient_results}, indent=2)
+            )
+            logger.finalize(summary)
         self._fold_state = model
         return summary
 

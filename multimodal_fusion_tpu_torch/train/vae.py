@@ -23,8 +23,14 @@ Execution, as the JAX trainer runs it:
 - ``device_data`` ("auto", True, False) keeps the current patch subsample
   on the device (uploaded again after a resample) and makes each batch a
   row gather;
-- ``mesh_shape`` is not ported yet and raises ``NotImplementedError``
-  naming ROADMAP Queue 1 item 16.
+- ``mesh_shape`` ({"data": N} or {"replica": R, "data": N}) trains data
+  parallel over the ranks of a launch (``parallel.mesh``): each rank keeps
+  its rows of every batch (a batch that does not divide the mesh stays
+  whole), every rank draws the whole batch's dropout masks and noise from
+  its copy of the generator, kept in step, and keeps its rows, so a
+  sharded run draws the unsharded run's numbers; the batch-mean losses are
+  averaged and the gradients summed over the ranks.  Rank 0 writes the
+  checkpoints and logs.
 """
 
 from __future__ import annotations
@@ -39,7 +45,14 @@ import numpy as np
 import torch
 
 from multimodal_fusion_tpu_torch.io.h5io import read_h5_retrying, write_channel
-from multimodal_fusion_tpu_torch.models.vae import VAE, vae_loss
+from multimodal_fusion_tpu_torch.models.vae import DROPOUT, VAE, vae_loss
+from multimodal_fusion_tpu_torch.parallel.mesh import (
+    all_reduce,
+    all_reduce_grads,
+    mesh_from_shape,
+    place_batch,
+    rows_of,
+)
 from multimodal_fusion_tpu_torch.train.checkpoint import load_state, save_state
 from multimodal_fusion_tpu_torch.train.optim import set_lr
 
@@ -64,11 +77,10 @@ class VAETrainer:
         scalar_log_path: Optional[str | Path] = None,
         tb_log_dir: Optional[str | Path] = None,
     ):
-        if mesh_shape:
-            raise NotImplementedError("mesh_shape (data parallelism) is not ported yet: "
-                                      "ROADMAP Queue 1 item 16")
         self.model = model
         self.device = next(model.parameters()).device
+        self.mesh = mesh_from_shape(mesh_shape, self.device)
+        self.is_main = self.mesh is None or self.mesh.is_main
         # decoupled AdamW, the reference's torch optim.AdamW
         self.optimizer = torch.optim.AdamW(model.parameters(), lr=learning_rate,
                                            betas=(0.9, 0.999), eps=1e-8,
@@ -94,30 +106,67 @@ class VAETrainer:
         # one CSV row per epoch, flushed at once (reference TB scalars,
         # vae/train.py:162-165)
         self.scalars = None
-        if scalar_log_path is not None:
+        if scalar_log_path is not None and self.is_main:
             from multimodal_fusion_tpu_torch.utils.scalars import ScalarWriter
 
             self.scalars = ScalarWriter(scalar_log_path)
         # TensorBoard event files with the reference's tag names
         # (vae/train.py:84,162-165,227-231)
         self.tb = None
-        if tb_log_dir is not None:
+        if tb_log_dir is not None and self.is_main:
             from multimodal_fusion_tpu_torch.utils.tbevents import TBEventWriter
 
             self.tb = TBEventWriter(tb_log_dir)
 
     # ------------------------------------------------------------------
 
-    def _step(self, x: torch.Tensor, generator: Optional[torch.Generator], draws=None):
+    def _mesh_draws(self, batch: int, x: torch.Tensor, generator, train: bool):
+        """The draws of an unsharded forward over the whole batch, in its
+        order (encoder keep masks, eps, decoder keep masks), each cut to this
+        rank's rows of ``x``."""
+        rows = slice(None) if x.shape[0] == batch else rows_of(self.mesh, batch)
+        keep = 1.0 - DROPOUT
+
+        def masks(layers):
+            if not train:
+                return None
+            return [(torch.rand((batch, layer.out_features), generator=generator,
+                                device=generator.device) < keep)[rows] for layer in layers[:-1]]
+
+        enc = masks(list(self.model.encoder.encoder.values()))
+        eps = torch.randn((batch, self.model.latent_dim), generator=generator,
+                          device=generator.device)[rows]
+        dec = masks(list(self.model.decoder.decoder.values())[:-1])
+        return {"encoder": enc, "eps": eps, "decoder": dec}
+
+    def _forward_loss(self, x, batch: int, generator, train: bool, draws=None):
+        """(total, recon, kld) of this rank's rows ``x`` of a ``batch``-row
+        batch; under a mesh the draws are the whole batch's
+        (``_mesh_draws``)."""
+        if self.mesh is not None and generator is not None and draws is None:
+            draws, generator = self._mesh_draws(batch, x, generator, train), None
+        x_hat, mean, log_var = self.model(x, generator=generator, train=train, draws=draws)
+        return vae_loss(x, x_hat, mean, log_var)
+
+    def _step(self, x: torch.Tensor, generator: Optional[torch.Generator], draws=None,
+              batch: Optional[int] = None):
         """One AdamW update at ``self.lr``; returns (total, recon, kld),
-        detached and left on the device."""
-        x_hat, mean, log_var = self.model(x, generator=generator, train=True, draws=draws)
-        total, recon, kld = vae_loss(x, x_hat, mean, log_var)
+        detached and left on the device.  Under a mesh ``x`` holds this
+        rank's rows of a ``batch``-row batch (or all of it): the batch means
+        are rank means over equal shards, so each rank's loss is divided by
+        the mesh size and the gradients summed."""
+        batch = x.shape[0] if batch is None else batch
+        total, recon, kld = self._forward_loss(x, batch, generator, True, draws)
+        n = 1 if self.mesh is None else self.mesh.size
         self.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        (total / n).backward()
+        all_reduce_grads(self.mesh, list(self.model.parameters()))
         set_lr(self.optimizer, self.lr)
         self.optimizer.step()
-        return total.detach(), recon.detach(), kld.detach()
+        parts = torch.stack([total.detach(), recon.detach(), kld.detach()])
+        if self.mesh is not None:
+            parts = all_reduce(self.mesh, parts) / n
+        return tuple(parts)
 
     @staticmethod
     def _index_batches(n: int, batch_size: int, shuffle_rng=None):
@@ -134,19 +183,22 @@ class VAETrainer:
             yield idxs
 
     def _batches(self, dataset, batch_size: int, shuffle_rng, table):
+        """(this rank's rows of a batch, the batch's row count): a host
+        batch is cut before its upload, a device batch gathers only these
+        rows."""
         if table is None:
             for x in dataset.batches(batch_size, shuffle_rng):
-                yield torch.as_tensor(x, device=self.device)
+                yield torch.as_tensor(place_batch(self.mesh, x), device=self.device), len(x)
         else:
             for rows in self._index_batches(len(dataset), batch_size, shuffle_rng):
-                yield table[torch.as_tensor(rows, device=self.device)]
+                yield table[torch.as_tensor(place_batch(self.mesh, rows), device=self.device)], len(rows)
 
     def train_epoch(self, dataset, batch_size: int, generator, shuffle_rng,
                     table=None) -> Dict[str, float]:
         """One pass over ``dataset``; the per-batch losses stay on the
         device until the epoch ends (one host sync)."""
-        parts = [self._step(x, generator) for x in self._batches(dataset, batch_size,
-                                                                 shuffle_rng, table)]
+        parts = [self._step(x, generator, batch=b) for x, b in self._batches(dataset, batch_size,
+                                                                           shuffle_rng, table)]
         self.global_step += len(parts)
         if not parts:
             return {"loss": float("nan"), "recon": float("nan"), "kld": float("nan")}
@@ -159,12 +211,14 @@ class VAETrainer:
         """Mean loss over ``dataset`` in order, z drawn from ``generator``,
         no dropout."""
         losses = []
-        for x in self._batches(dataset, batch_size, None, table):
-            x_hat, mean, log_var = self.model(x, generator=generator, train=False)
-            losses.append(vae_loss(x, x_hat, mean, log_var)[0])
+        for x, b in self._batches(dataset, batch_size, None, table):
+            losses.append(self._forward_loss(x, b, generator, False)[0])
         if not losses:
             return float("nan")
-        return float(np.mean(torch.stack(losses).cpu().numpy()))
+        stacked = torch.stack(losses)
+        if self.mesh is not None:
+            stacked = all_reduce(self.mesh, stacked) / self.mesh.size
+        return float(np.mean(stacked.cpu().numpy()))
 
     def plateau_step(self, val_loss: float) -> None:
         """ReduceLROnPlateau(min) with torch's default relative threshold
@@ -203,7 +257,7 @@ class VAETrainer:
         return {str(i): {k: s[k] for k in _ADAM_STATE} for i, s in state.items()}
 
     def save_checkpoint(self, tag: str) -> None:
-        if self.checkpoint_dir is None:
+        if self.checkpoint_dir is None or not self.is_main:
             return
         self.checkpoint_dir.mkdir(parents=True, exist_ok=True)
         save_state(

@@ -242,7 +242,7 @@ def test_batches_lr_and_options_give_identical_histories(npz_dir, monkeypatch):
     """The port draws the JAX trainer's batches (the positions its host
     collate sees) and learning rates; scan_steps 1 and 8 and device_data on
     and off give identical histories; negatives are required for loss_IM;
-    a mesh raises naming ROADMAP item 16."""
+    a mesh_shape without a launcher trains unsharded."""
     seen = {"jax": [], "port": []}
     for name, cls in (("jax", JaxDataset), ("port", TMANpzAlignedWithNegDataset)):
         view = _views(cls, npz_dir)[1]["train"]
@@ -278,8 +278,8 @@ def test_batches_lr_and_options_give_identical_histories(npz_dir, monkeypatch):
                                      mismatch_ratio=0.0)
     with pytest.raises(RuntimeError, match="Negative features"):
         MultiModalAlignmentTrainer(_models()[1], lambda2=0.1).train(ds, ds, max_steps=2, batch_size=4)
-    with pytest.raises(NotImplementedError, match="item 16"):
-        MultiModalAlignmentTrainer(_models()[1], mesh_shape={"data": 2})
+    # a mesh_shape without a launcher trains unsharded, as in the JAX package
+    assert MultiModalAlignmentTrainer(_models()[1], mesh_shape={"data": 2}).mesh is None
 
 
 def test_run_alignment_cli_writes_the_jax_cli_files(npz_dir, tmp_path):

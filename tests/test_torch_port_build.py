@@ -198,13 +198,14 @@ def test_process_dataset_pipeline_and_resume(tmp_path):
 
 
 def test_unported_paths_raise_and_device_defaults_to_cuda(tmp_path, monkeypatch):
-    """Only ``mesh`` is still unported; the batched build and blockwise
-    statistics, which raised before, build."""
+    """Nothing is unported any more: ``mesh`` builds (in a gang,
+    tests/test_torch_port_parallel.py) and refuses ``file_batch``, as the
+    JAX build does; the batched build and blockwise statistics build."""
     csv_path = _write_fixture(tmp_path, n_cases=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, 'mesh'"):
-        tbuild.process_dataset(csv_path, tmp_path, save_similarity=False, mesh=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1, 'mesh'"):
-        tbuild.process_single_file(tmp_path / "case_0.h5", mesh=object(), device="cpu")
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        tbuild.process_dataset(csv_path, tmp_path, save_similarity=False, mesh=object(),
+                               file_batch=2, device="cpu")
+    assert not hasattr(tbuild, "_not_ported")
     stats, _ = tbuild.process_dataset(csv_path, tmp_path, **PARAMS, file_batch=2,
                                       save_similarity=False, device="cpu")
     assert [s.get("error") for s in stats] == [None]
@@ -229,9 +230,11 @@ def test_cli_builds_on_cpu_and_rejects_unported_flags(tmp_path):
     summary = json.loads(out.stdout.strip().splitlines()[-1])
     assert summary["files"] == 2 and summary["total_patches"] == 600
     assert all(has_complete_hypergraph(tmp_path / f"case_{i}.h5") for i in range(2))
+    # --mesh_data larger than the world (no launcher: a world of 1) fails
+    # as the JAX package's make_mesh does
     bad = subprocess.run(cmd + ["--mesh_data", "2"], cwd=REPO, capture_output=True, text=True,
                          timeout=300)
-    assert bad.returncode == 2 and "ROADMAP.md, Queue 1, 'mesh'" in bad.stderr
+    assert bad.returncode == 1 and "requested 2 devices, have 1" in bad.stderr
 
 
 def _h5_datasets(path):

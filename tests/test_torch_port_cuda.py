@@ -699,3 +699,22 @@ def test_vae_step_card_matches_cpu(cuda):
     (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
     assert float((lc - lh).abs() / lh.abs()) <= 1e-5
     assert max(_rel_l2(a, b) for a, b in zip(gc, gh)) <= 1e-4
+
+
+def test_world_of_one_nccl_sharded_similarity_and_training_step(cuda, tmp_path):
+    """An NCCL world of 1 in a subprocess (``multihost.run_gang``): K1's
+    sharded stripe equals the whole K's rows bit for bit, the mesh build
+    equals the unsharded one, and one flagship window sharded equals it
+    unsharded (loss 1e-5, gradients 1e-4, parameters 1e-5)."""
+    from multimodal_fusion_tpu_torch.parallel.multihost import run_gang
+
+    dry = "multimodal_fusion_tpu_torch.parallel.dryrun"
+    calls = [(f"{dry}:check_sharded_similarity", dict(n=1024, dim=256), {"data": 1}),
+             (f"{dry}:check_build", dict(n_patches=2048, dim=64), {"data": 1}),
+             (f"{dry}:check_flagship_step", dict(G=8, tol={"loss": 1e-5, "grad": 1e-4,
+                                                           "param": 1e-5}), {"data": 1})]
+    (results,), _ = run_gang(f"{dry}:run_calls", 1, {"calls": calls, "device": "cuda"},
+                             timeout=600, device="cuda", workdir=tmp_path)
+    for res in results:
+        assert "raised" not in res, res
+    assert results[0]["equal"] and results[0]["launches"] == 1

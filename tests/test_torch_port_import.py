@@ -68,6 +68,9 @@ required = {
     "multimodal_fusion_tpu_torch.cli.train_vae",
     "multimodal_fusion_tpu_torch.cli.generate_reconstructed_wsi",
     "multimodal_fusion_tpu_torch.hypergraph.dense_graph",
+    "multimodal_fusion_tpu_torch.parallel.mesh",
+    "multimodal_fusion_tpu_torch.parallel.multihost",
+    "multimodal_fusion_tpu_torch.parallel.dryrun",
 }
 assert required <= set(names), sorted(required - set(names))
 print(len(names))

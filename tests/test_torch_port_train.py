@@ -147,14 +147,15 @@ def test_train_fold_matches_jax_trainer(mfmf_data, tmp_path):
         tr.evaluate_fold(ds, splits[0], 0, drop_prob=0.5)
 
 
-def test_trainer_raises_on_unported_options(mfmf_data, tmp_path):
-    """mesh_shape still raises naming ROADMAP item 16; remat (ported) trains
-    MFMF to the history it has without remat; bfloat16 evaluation is
-    taken."""
+def test_trainer_raises_on_unported_options(mfmf_data, tmp_path, capsys):
+    """mesh_shape without a launcher (a world of 1) prints the JAX package's
+    message and trains unsharded (sharded runs: test_torch_port_parallel.py);
+    remat trains MFMF to the history it has without remat; bfloat16
+    evaluation is taken."""
     root, csv_path, chans = mfmf_data
     _, tc = _configs(chans, mesh_shape={"data": 2})
-    with pytest.raises(NotImplementedError, match="item 16"):
-        SurvivalTrainer(tc, tmp_path, device="cpu")
+    assert SurvivalTrainer(tc, tmp_path, device="cpu").mesh is None
+    assert "needs 2 devices, have 1; running unsharded" in capsys.readouterr().out
     ds = MultimodalDataset(csv_path, root, chans)
     split = tsplits.create_k_fold_splits(ds.labels, 3, 7)[0]
     histories = []

@@ -262,10 +262,18 @@ def test_extract_marker_features_and_npz_match_jax(pair, tmp_path):
     assert all(a[k].shape == b[k].shape and b[k].dtype == np.float32 for k in a.files)
 
 
-def test_mesh_is_not_ported_yet(pair):
-    _, port = pair
-    with pytest.raises(NotImplementedError, match="item 16"):
-        ttma.make_feature_extractor(port, mesh=object(), device="cpu")
+def test_mesh_is_not_ported_yet(pair, tmp_path):
+    """The mesh is ported: in a gang of 2 each rank extracts its rows of a
+    batch and the gathered features equal an unsharded run's (the JAX test
+    test_mesh_sharded_extraction's claim)."""
+    from multimodal_fusion_tpu_torch.parallel.multihost import run_gang
+
+    results, _ = run_gang("multimodal_fusion_tpu_torch.parallel.dryrun:run_calls", 2, {"calls": [
+        ("multimodal_fusion_tpu_torch.parallel.dryrun:check_extraction",
+         dict(vit=TINY, n_patches=7, batch_size=4), {"data": 2})], "device": "cpu"},
+        timeout=300, device="cpu", workdir=tmp_path)
+    for (res,) in results:
+        assert res["shape"] == [7, 64] and res["rel_l2"] <= 1e-5, res
 
 
 def test_cli_on_png_cores(tmp_path, monkeypatch):
@@ -294,7 +302,8 @@ def test_cli_on_png_cores(tmp_path, monkeypatch):
     assert sorted(out.files) == sorted(cores["cd3"])
     assert out["core_block1_x2_y3_patient007"].shape == (3 * 4, 64)  # 3 x 4 windows
     assert out["core_block1_x1_y1_patient002"].shape == (1, 64)  # small core, resized whole
-    with pytest.raises(NotImplementedError, match="item 16"):
+    # --mesh_data larger than the world (no launcher) fails as JAX's make_mesh does
+    with pytest.raises(ValueError, match="requested 2 devices, have 1"):
         cli.main(["--input_dir", str(tmp_path / "in"), "--output_dir", str(tmp_path / "out"),
                   "--mesh_data", "2", "--device", "cpu"])
 
