@@ -69,7 +69,18 @@ port's paths through their entry points:
   the build CLI's ``--cache_similarity`` and ``--rebuild
   --threshold_median_ratio`` against a CPU rebuild of the same cache; the
   dense graph card vs CPU.  The HDF5 entry points run on files held in
-  host memory where h5py is missing (``_mem_h5py``).
+  host memory where h5py is missing (``_mem_h5py``);
+- export and the utilities, on which no TPU kernel lies: the flagship's
+  ``torch.export`` serving artifact from the serving results dir at
+  bench.py's inference cell, for the CPU and the card, against
+  ``evaluate_fold`` and the live model, its throughput beside the live
+  eval forward's; MFMF's artifact (the plain attention) against the live
+  model's kernels; the alignment and VAE artifacts from the pretraining
+  checkpoints; the fold checkpoints saved as reference ``.pt`` files and
+  converted back by ``import_results_dir``, ``predict`` over both; the
+  robustness sweep; and ``utils/mfu.measure_device`` on the flagship's
+  eval forward, ViT-L/16 and K1, whose bounds the kernels line also
+  takes from ``utils/mfu.chip_peaks``.
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
@@ -83,6 +94,7 @@ events and stand beside the card's name and power limit.
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import hashlib
 import json
@@ -97,12 +109,6 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-
-# H100 SXM data-sheet peaks (dense): non-tensor float32, bf16 tensor cores
-# and HBM3 bandwidth
-PEAK_F32_FLOPS = 67e12
-PEAK_BF16_FLOPS = 989e12
-PEAK_BYTES_PER_S = 3.35e12
 
 # the benchmark's build configuration (bench.py)
 N_FILES, N_PATCHES, N_TMA, DIM = 8, 4096, 32, 1024
@@ -292,20 +298,22 @@ def _ptxas_summary(log):
     return out
 
 
-def _similarity_bound_ms(m, n, d, p, feat_bytes):
+def _similarity_work(m, n, d, p, feat_bytes):
+    """(operations, bytes) of K1 on an [m, n] tile of d-wide features and
+    p-wide positions."""
     ops = (2 * d + 3 * p + 5) * m * n + 2 * (m + n) * d
     nbytes = (m + n) * d * feat_bytes + (m + n) * p * 4 + m * n * 4
-    return max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3, (
-        "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
-    )
+    return ops, nbytes
+
+
+def _similarity_bound_ms(m, n, d, p, feat_bytes):
+    return _bound_ms(*_similarity_work(m, n, d, p, feat_bytes), 4)
 
 
 def _knn_bound_ms(n, d, k):
     ops = 2 * n * n * d + 4 * n * n + 2 * n * d
     nbytes = n * d * 4 + n * k * 8
-    return max(ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S) * 1e3, (
-        "operations" if ops / PEAK_F32_FLOPS >= nbytes / PEAK_BYTES_PER_S else "bytes"
-    )
+    return _bound_ms(ops, nbytes, 4)
 
 
 def _knn_two_calls(torch, x, k):
@@ -326,9 +334,7 @@ def _attention_bound_ms(b, h, t_q, t_k, hd, itemsize):
     the bf16 tensor peak; bytes of q, k, v and o at the HBM rate."""
     ops = 4 * b * h * t_q * t_k * hd
     nbytes = b * h * (2 * t_q + 2 * t_k) * hd * itemsize
-    t_ops = ops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+    return _bound_ms(ops, nbytes, itemsize)
 
 
 def _attention_bwd_work(b, h, t_q, t_k, hd, itemsize, valid_keys=None):
@@ -343,10 +349,14 @@ def _attention_bwd_work(b, h, t_q, t_k, hd, itemsize, valid_keys=None):
 
 
 def _bound_ms(ops, nbytes, itemsize):
-    """The larger of the operations at the f32 non-tensor (or bf16 tensor)
-    peak and the bytes at the HBM rate, in ms, and which one it is."""
-    t_ops = ops / (PEAK_F32_FLOPS if itemsize == 4 else PEAK_BF16_FLOPS)
-    t_bytes = nbytes / PEAK_BYTES_PER_S
+    """The larger of the operations at the card's f32 non-tensor (or bf16
+    tensor) peak and the bytes at its HBM rate, in ms, and which one it
+    is; the peaks are ``utils/mfu.chip_peaks``'s table."""
+    from multimodal_fusion_tpu_torch.utils.mfu import chip_peaks
+
+    _, peak_bf16, peak_f32, peak_bytes = chip_peaks()
+    t_ops = ops / (peak_f32 if itemsize == 4 else peak_bf16)
+    t_bytes = nbytes / peak_bytes
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -735,7 +745,7 @@ def main() -> int:
     )
     from multimodal_fusion_tpu_torch.data.batching import make_window
     from multimodal_fusion_tpu_torch.data.splits import FoldSplit
-    from multimodal_fusion_tpu_torch.train.checkpoint import load_state, save_model
+    from multimodal_fusion_tpu_torch.train.checkpoint import load_model, load_state, save_model
     from multimodal_fusion_tpu_torch.train.optim import make_optimizer
     from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
     from multimodal_fusion_tpu_torch.utils import results_io
@@ -1665,7 +1675,7 @@ def main() -> int:
         return peaks
 
     # ---------------------------------------------------------------- 12
-    mfmf = {}  # trainer, model, tables and timing window, read by phase 13
+    mfmf = {}  # trainer, model, tables and timing window, read by phases 13 and 40
     drawn = {}  # phase 12's in-memory cases, read by phases 14-16
 
     def mfmf_raw_cases():
@@ -1700,7 +1710,7 @@ def main() -> int:
         n_eval = (MFMF_EPOCHS + 1) * -(-sizes[1] // 16) + -(-sizes[2] // 16)
 
         td = Path(tempfile.mkdtemp(prefix="mfmf_"))
-        mfmf["dir"] = td
+        mfmf.update(dir=td, mc=mc, ec=ec)  # phase 40 exports the fold this phase trains
         summaries = {}
         for device_data in (True, False):
             ec.device_data = device_data
@@ -4253,6 +4263,355 @@ def main() -> int:
         s.check(text.count("dryrun_multichip(4): ") == 4 and "mesh {'replica': 2, 'data': 2}" in text,
                 f"dryrun_multichip(4): 4 OK lines ({time.perf_counter() - t0:.1f} s wall)")
 
+    # ---------------------------------------------------------------- 40
+    exported = {}  # the artifacts' directory, read by phases 41-42
+
+    def padded_window(raws, channels, wsi, tma):
+        """Numpy channels and masks of ``raws`` in an artifact's layout: bags
+        padded to ``wsi`` / ``tma`` patches with their masks, tabular groups
+        [B, 1, dim]."""
+        chans, masks = {}, {}
+        for ch in channels:
+            if ch.startswith(("wsi=", "tma=")):
+                n = wsi if ch.startswith("wsi") else tma
+                chans[ch] = np.zeros((len(raws), n, DIM), np.float32)
+                masks[ch] = np.zeros((len(raws), n), bool)
+                for i, r in enumerate(raws):
+                    chans[ch][i, :len(r[ch])] = r[ch]
+                    masks[ch][i, :len(r[ch])] = True
+            else:
+                chans[ch] = np.stack([r[ch] for r in raws])
+        return chans, masks
+
+    def on_card(tree):
+        return {k: torch.as_tensor(v, device=dev) for k, v in tree.items()}
+
+    def live_outputs(model, chans, masks):
+        """(probabilities, risk) of ``model``'s eval forward on the card, as
+        a serving artifact computes them."""
+        n = len(next(iter(chans.values())))
+        with torch.no_grad():
+            res = model({"channels": on_card(chans), "masks": on_card(masks)},
+                        torch.zeros(n, dtype=torch.int64, device=dev), train=False)
+        risk = res["risk"] if "risk" in res else res["logits"][:, 1]
+        return res["probabilities"].cpu().numpy(), risk.cpu().numpy()
+
+    def in_turns(label, unit, per_call, runs, windows=5, calls=4):
+        """Each of ``runs`` (name -> a call on tensors held on the card) over
+        ``windows`` windows of ``calls`` calls, the runs in turns window by
+        window; prints each one's median rate in ``unit``/s."""
+        walls = {name: [] for name in runs}
+        with torch.no_grad():
+            for fn in runs.values():
+                fn()
+            for _ in range(windows):
+                for name, fn in runs.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    for _ in range(calls):
+                        fn()
+                    torch.cuda.synchronize()
+                    walls[name].append(time.perf_counter() - t0)
+        for name, w in walls.items():
+            rates = sorted(calls * per_call / x for x in w)
+            s.timed(f"{label}, {name}: median {calls * per_call / float(np.median(w)):.1f} {unit}/s "
+                    f"over {windows} windows of {calls} calls (min {rates[0]:.1f}, max {rates[-1]:.1f})")
+
+    def export_phase():
+        """Main path: the flagship's serving artifact, exported from fold 0
+        of phase 16's results dir at bench.py's inference cell for the CPU
+        and the card, against evaluate_fold and the live model; then MFMF's
+        from phase 12's trained fold."""
+        from multimodal_fusion_tpu_torch.utils import export
+
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        rd = flag["dir"] / "serve"
+        td = exported["dir"] = Path(tempfile.mkdtemp(prefix="export_"))
+        t0 = time.perf_counter()
+        programs, meta = export.export_serving_fn(rd, fold=0, wsi_patches=INF_WSI, tma_patches=INF_TMA)
+        wall = time.perf_counter() - t0
+        out = export.write_serving_artifact(td / "flagship", programs, meta)
+        sizes = {p: export.program_path(out, p).stat().st_size for p in meta["platforms"]}
+        s.check(meta["batch"] == "symbolic" and meta["platforms"] == ["cpu", "cuda"],
+                f"export_serving_fn: batch {meta['batch']!r} (symbolic), platforms {meta['platforms']}")
+        s.timed(f"export_serving_fn, {len(meta['channels'])} channels at {INF_WSI} WSI x {INF_TMA} TMA "
+                f"patches x {DIM}, both platforms: {wall:.2f} s wall; artifact bytes "
+                + ", ".join(f"{p} {n}" for p, n in sizes.items()))
+        art = export.load_serving_artifact(out)
+        cpu_art = export.load_serving_artifact(out, device="cpu")
+        live = ModelFactory.create_model(flag_config(), device=dev)
+        load_model(rd / "s_0_checkpoint.npz", live)
+        live.eval()
+        tr = SurvivalTrainer(Configs(flag["ec"], flag_config()), rd, device=dev)
+        want = tr.evaluate_fold(_CaseTable(raws, labels), FoldSplit(empty_idx, empty_idx,
+                                                                     np.arange(MFMF_CASES)), 0)
+        want_p, want_r = np.asarray(want["probs"]), np.asarray(want["risk"]).reshape(-1)
+        for size in (8, 64):
+            got_p, got_r, live_p, live_r = [], [], [], []
+            for s0 in range(0, MFMF_CASES, size):
+                chans, masks = padded_window(raws[s0:s0 + size], meta["channels"], INF_WSI, INF_TMA)
+                p, r = art.call(chans, masks)
+                lp, lr = live_outputs(live, chans, masks)
+                got_p.append(p), got_r.append(r), live_p.append(lp), live_r.append(lr)
+            got_p, got_r = np.concatenate(got_p), np.concatenate(got_r)
+            e_live = max(np.abs(got_p - np.concatenate(live_p)).max(),
+                         np.abs(got_r - np.concatenate(live_r)).max())
+            e_eval = max(np.abs(got_p - want_p).max(), np.abs(got_r - want_r).max())
+            s.check(got_p.shape == (MFMF_CASES, 2) and e_live <= 1e-5 and e_eval <= 1e-5,
+                    f"artifact on the card, windows of {size}: probabilities and risk of {MFMF_CASES} "
+                    f"cases within {e_live:.2e} of the live model on the same padded windows and "
+                    f"{e_eval:.2e} of evaluate_fold (<= 1e-5; |risk| up to {np.abs(want_r).max():.2f})")
+        chans, masks = padded_window(raws[:8], meta["channels"], INF_WSI, INF_TMA)
+        t0 = time.perf_counter()
+        cp, cr = cpu_art.call(chans, masks)
+        cpu_wall = time.perf_counter() - t0
+        gp, gr = art.call(chans, masks)
+        e_cpu = max(np.abs(cp - gp).max(), np.abs(cr - gr).max())
+        s.check(e_cpu <= 1e-4, f"the CPU program vs the card's on 8 cases: {e_cpu:.2e} <= 1e-4 "
+                               f"({cpu_wall:.1f} s on the host)")
+
+        chans, masks = padded_window(raws[:64], meta["channels"], INF_WSI, INF_TMA)
+        c, m = on_card(chans), on_card(masks)
+        zero = torch.zeros(64, dtype=torch.int64, device=dev)
+        in_turns("flagship, 64-case windows on the card", "cases", 64,
+                 {"artifact program": lambda: art.module(c, m),
+                  "live eval forward": lambda: live({"channels": c, "masks": m}, zero, train=False)})
+        t0 = time.perf_counter()
+        for _ in range(3):
+            art.call(chans, masks)
+        s.timed(f"ServingArtifact.call on 64-case numpy windows (upload and fetch included): "
+                f"{3 * 64 / (time.perf_counter() - t0):.1f} cases/s over 3 calls")
+        no_kernel_launches("phase 40, the flagship's artifact")
+
+        mrd = mfmf["dir"] / "device_data_True"  # phase 12's trained fold 0
+        Configs(mfmf["ec"], mfmf["mc"]).save(mrd / "configs_mfmf_config0.json")
+        t0 = time.perf_counter()
+        programs, mmeta = export.export_serving_fn(mrd, fold=0, wsi_patches=INF_WSI, tma_patches=INF_TMA)
+        s.timed(f"export_serving_fn, MFMF (attention forced to the plain formulation), both "
+                f"platforms: {time.perf_counter() - t0:.2f} s wall")
+        mart = export.load_serving_artifact(export.write_serving_artifact(td / "mfmf", programs, mmeta))
+        mlive = ModelFactory.create_model(mfmf["mc"], device=dev)
+        load_model(mrd / "s_0_checkpoint.npz", mlive)
+        mlive.eval()
+        chans, masks = padded_window(raws[:16], mmeta["channels"], INF_WSI, INF_TMA)
+        reset_counts()
+        p, r = mart.call(chans, masks)
+        k3 = attention_fwd.launches
+        lp, lr = live_outputs(mlive, chans, masks)
+        routes = {k: v for k, v in attention_fwd.route_launches.items() if v}
+        s.check(mmeta["batch"] == "symbolic" and k3 == 0 and attention_fwd.launches == 3,
+                f"MFMF artifact: batch {mmeta['batch']!r}, K3 launched {k3} times in its call; the "
+                f"live model's eval forward {attention_fwd.launches} times ({routes})")
+        err = max(np.abs(p - lp).max(), np.abs(r - lr).max())
+        s.check(err <= 1e-4, f"MFMF artifact vs the live model (K3's narrow routes) on 16 cases: "
+                             f"{err:.2e} <= 1e-4")
+
+    # ---------------------------------------------------------------- 41
+    def pretrained_export_phase():
+        """Main path: the alignment model's artifact from phase 25's
+        checkpoint and the VAE's from phase 26's, against the live models."""
+        from multimodal_fusion_tpu_torch.utils import export
+
+        reset_counts()
+        td = exported["dir"]
+        t0 = time.perf_counter()
+        programs, meta = export.export_alignment_fn(pre["ckpt"])
+        wall = time.perf_counter() - t0
+        art = export.load_serving_artifact(export.write_serving_artifact(td / "alignment", programs, meta))
+        s.check(meta["batch"] == "symbolic" and meta["markers"] == sorted(TMA_MARKERS)
+                and (meta["num_layers"], meta["feature_dim"]) == (2, DIM),
+                f"export_alignment_fn ({wall:.2f} s): batch {meta['batch']!r}, {len(meta['markers'])} "
+                f"markers x {meta['feature_dim']}, {meta['num_layers']} layers")
+        live = MultiModalAlignmentModel(meta["markers"], feature_dim=DIM, num_layers=2,
+                                        generator=torch.Generator(device=dev).manual_seed(0))
+        load_model(pre["ckpt"], live)
+        live.eval()
+        rng = np.random.default_rng(41)
+        feats = {mk: rng.standard_normal((ALIGN_BATCH, DIM), dtype=np.float32) for mk in meta["markers"]}
+        got = art(feats)
+        cf = on_card(feats)
+        with torch.no_grad():
+            want = {mk: t.cpu().numpy() for mk, t in live(cf).items()}
+        err = max(np.abs(got[mk] - want[mk]).max() for mk in want)
+        s.check(err <= 1e-5, f"alignment artifact vs the live model, {ALIGN_BATCH} samples x "
+                             f"{len(want)} markers: {err:.2e} <= 1e-5")
+        in_turns(f"alignment apply pass, batches of {ALIGN_BATCH}", "samples", ALIGN_BATCH,
+                 {"artifact program": lambda: art.module(cf), "live model": lambda: live(cf)},
+                 calls=10)
+
+        ckpt = vae_run["dir"] / "ckpt" / "best.npz"
+        t0 = time.perf_counter()
+        programs, meta = export.export_vae_fn(ckpt)
+        wall = time.perf_counter() - t0
+        art = export.load_serving_artifact(export.write_serving_artifact(td / "vae", programs, meta))
+        s.check(meta["batch"] == "symbolic" and (meta["input_dim"], meta["encoder_hidden"],
+                                                 meta["latent_dim"]) == (DIM, [512, 256], 128),
+                f"export_vae_fn ({wall:.2f} s): batch {meta['batch']!r}, {meta['input_dim']} -> "
+                f"{meta['encoder_hidden']} -> {meta['latent_dim']}")
+        vae = VAE(input_dim=meta["input_dim"], encoder_hidden=meta["encoder_hidden"],
+                  decoder_hidden=meta["decoder_hidden"], latent_dim=meta["latent_dim"],
+                  generator=torch.Generator(device=dev).manual_seed(0))
+        restored, _ = load_state(ckpt, {"model": vae.state_dict()})
+        vae.load_state_dict(restored["model"])
+        vae.eval()
+        x = np.concatenate([r["wsi=features"] for r in mfmf_raw_cases()[0][:2]])[:4 * VAE_BATCH]
+        got = art(x)
+        xc = torch.as_tensor(x, device=dev)
+        with torch.no_grad():
+            mu = vae.encode(xc)
+            want = (vae.decode(mu).cpu().numpy(), mu.cpu().numpy())
+        err = max(np.abs(g - w).max() for g, w in zip(got, want))
+        s.check(err <= 1e-5, f"VAE artifact vs the live model (mean-latent reconstruction), {len(x)} "
+                             f"patches: x_hat and mu within {err:.2e} <= 1e-5")
+        in_turns(f"VAE reconstruction, batches of {len(x)} patches", "patches", len(x),
+                 {"artifact program": lambda: art.module(xc),
+                  "live model": lambda: vae.decode(vae.encode(xc))}, calls=10)
+        no_kernel_launches("phase 41")
+
+    # ---------------------------------------------------------------- 42
+    def import_robust_phase():
+        """Main path: phase 16's five folds saved as reference .pt
+        checkpoints and converted back by import_results_dir, predict over
+        both dirs; the robustness sweep over a detach results dir."""
+        from multimodal_fusion_tpu_torch.cli.import_torch_results import import_results_dir
+        from multimodal_fusion_tpu_torch.data.splits import save_fold_split
+        from multimodal_fusion_tpu_torch.utils.robust import robustness_sweep
+
+        reset_counts()
+        raws, labels = mfmf_raw_cases()
+        rd, td = flag["dir"] / "serve", exported["dir"]
+        ref = td / "reference"
+        ref.mkdir()
+        cfg = next(rd.glob("configs_*.json"))
+        shutil.copy(cfg, ref / cfg.name)
+        for fold in range(SERVE_FOLDS):
+            sd = {k: t.cpu() for k, t in load_state(rd / f"s_{fold}_checkpoint.npz", {
+                "params": ModelFactory.create_model(flag_config(), device=dev).state_dict()})[0][
+                "params"].items()}
+            if fold % 2:  # as the reference's VAE / alignment trainers save, compiled
+                sd = {"model_state_dict": {f"_orig_mod.{k}": t for k, t in sd.items()}}
+            torch.save(sd, ref / f"s_{fold}_checkpoint.pt")
+        t0 = time.perf_counter()
+        res = import_results_dir(ref, td / "converted", device=dev)
+        s.check(res["folds"] == list(range(SERVE_FOLDS)) and res["unmapped_keys"] == {},
+                f"import_results_dir: folds {res['folds']} (plain and wrapped, _orig_mod.-prefixed "
+                f".pt files), no unused keys; {time.perf_counter() - t0:.2f} s")
+
+        rows = case_rows(labels)
+        by_path = {r["h5_file_path"]: raw for r, raw in zip(rows, raws)}
+        csv_path, request = td / "cases.csv", td / "request.csv"
+        write_csv(csv_path, rows)
+        write_csv(request, rows[:64])
+        original = results_io.build_dataset
+        results_io.build_dataset = lambda configs, csv_path, data_root_dir, align=None, **_: _CsvCases(
+            csv_path, by_path)
+        try:
+            want = predict(rd, request, rd, output_path=td / "original", device=dev)["cases"]
+            got = predict(td / "converted", request, td, output_path=td / "converted_pred",
+                          device=dev)["cases"]
+            cols = ["risk", "prob_0", "prob_1"] + [f"fold_{f}_prob_1" for f in range(SERVE_FOLDS)]
+            same = [(g["case_id"], g["prediction"]) for g in got] == [
+                (w["case_id"], w["prediction"]) for w in want]
+            err = max(abs(float(g[c]) - float(w[c])) for g, w in zip(got, want) for c in cols)
+            s.check(same and len(got) == 64 and err <= 1e-6,
+                    f"predict over the converted dir vs the original, {len(got)} cases x "
+                    f"{SERVE_FOLDS} folds: max abs diff {err:.2e} <= 1e-6")
+
+            det = flag_config("svd_gate_random_clam_detach")
+            rrd = td / "robust"
+            rrd.mkdir()
+            Configs(flag["ec"], det).save(rrd / f"configs_{flag['ec'].exp_name}.json")
+            ds = _CsvCases(csv_path, by_path)
+            splits = create_k_fold_splits(ds.labels, SERVE_FOLDS, flag["ec"].seed)
+            for fold in (0, 1):
+                save_model(rrd / f"s_{fold}_checkpoint.npz",
+                           ModelFactory.create_model(det, seed=200 + fold, device=dev))
+                save_fold_split(splits[fold], ds.case_ids, rrd / f"splits_{fold}.csv")
+            drops = (0.0, 0.1, 0.2, 0.3, 0.4, 0.5)
+            t0 = time.perf_counter()
+            sweep = robustness_sweep(rrd, csv_path, rrd, drop_probs=drops, device=dev)
+            wall = time.perf_counter() - t0
+        finally:
+            results_io.build_dataset = original
+        s.check(len(sweep) == 2 * len(drops) and (rrd / "robustness.csv").exists()
+                and (rrd / "robustness.json").exists(),
+                f"robustness_sweep: {len(sweep)} rows (2 folds x {len(drops)} drop_probs), "
+                "robustness.csv and .json written")
+        s.timed(f"robustness_sweep over 2 folds x {len(drops)} drop_probs at the flagship's width "
+                f"({len(splits[0].test_idx)} test cases a fold): {wall:.2f} s wall")
+        tr = SurvivalTrainer(Configs(flag["ec"], det), rrd, device=dev)
+        for fold in (0, 1):
+            row = next(r for r in sweep if r["fold"] == fold and r["drop_prob"] == 0.0)
+            ev = tr.evaluate_fold(ds, splits[fold], fold)
+            s.check((row["auc"], row["acc"], row["loss"]) == (ev["auc"], ev["acc"], ev["loss"]),
+                    f"fold {fold}, drop_prob 0: auc {row['auc']!r}, acc {row['acc']!r}, loss "
+                    f"{row['loss']!r} equal evaluate_fold's")
+        s.log("  sweep: " + "; ".join(f"fold {r['fold']} p {r['drop_prob']}: auc {r['auc']:.4f} "
+                                      f"loss {r['loss']:.4f}" for r in sweep))
+        no_kernel_launches("phase 42")
+
+    # ---------------------------------------------------------------- 43
+    def mfu_phase():
+        """utils/mfu.measure_device on the card: the flagship's eval forward
+        at phase 15's batch in float32 and bf16, ViT-L/16 bf16 at a batch of
+        32 (the counter sees its dense layers, not K3), and K1 at
+        [4096, 4096, 1024] with its analytic operations and bytes."""
+        from multimodal_fusion_tpu_torch.utils.mfu import measure_device
+
+        chans = ["wsi=features", "tma=cd3=features", "clinical=val", "clinical=mask"]
+        mc = ModelConfig(model_type="svd_gate_random_clam", n_classes=2, input_dim=DIM,
+                         model_size="64*32", dropout=0.25, output_dim=128,
+                         channels_used_in_model=chans, channel_input_dims={"clinical=val": 16})
+        rng = np.random.default_rng(0)
+        shapes = {"wsi=features": (INF_BATCH, INF_WSI, DIM), "tma=cd3=features": (INF_BATCH, INF_TMA, DIM),
+                  "clinical=val": (INF_BATCH, 1, 16)}
+        channels = {k: torch.as_tensor(rng.standard_normal(v, dtype=np.float32), device=dev)
+                    for k, v in shapes.items()}
+        channels["clinical=mask"] = torch.ones((INF_BATCH, 1, 16), device=dev)
+        masks = {"wsi=features": torch.ones((INF_BATCH, INF_WSI), dtype=torch.bool, device=dev),
+                 "tma=cd3=features": torch.ones((INF_BATCH, INF_TMA), dtype=torch.bool, device=dev)}
+        label = torch.zeros(INF_BATCH, dtype=torch.int64, device=dev)
+        model = ModelFactory.create_model(mc, seed=0, device=dev).eval()
+        model16 = copy.deepcopy(model).to(torch.bfloat16)
+        ch16 = {k: v.to(torch.bfloat16) for k, v in channels.items()}
+
+        def forward(m, chans_):
+            with torch.no_grad():
+                return m({"channels": chans_, "masks": masks}, label, train=False)
+
+        vit_model = vit_large_16(torch.Generator(device=dev).manual_seed(SEED)).to(torch.bfloat16).eval()
+        images = torch.randn((VIT_BATCH, 224, 224, 3), device=dev, dtype=torch.bfloat16)
+
+        def vit_forward(x):
+            with torch.no_grad():
+                return vit_model(x)
+
+        feats, pos, _ = clustered_slide(np.random.default_rng(0), N_PATCHES, N_TMA, DIM)
+        f, p = torch.as_tensor(feats, device=dev), torch.as_tensor(pos, device=dev)
+        ops, nbytes = _similarity_work(N_PATCHES, N_PATCHES, DIM, p.shape[1], 4)
+        cases = {
+            f"flagship eval forward, float32, {INF_BATCH} x {INF_WSI} WSI": measure_device(
+                forward, (model, channels), iters=20, dtype="float32", work_items=INF_BATCH),
+            f"flagship eval forward, bf16, {INF_BATCH} x {INF_WSI} WSI": measure_device(
+                forward, (model16, ch16), iters=20, dtype="bfloat16", work_items=INF_BATCH),
+            f"ViT-L/16 bf16, {VIT_BATCH} images (dense layers counted, K3 not)": measure_device(
+                vit_forward, (images,), iters=5, dtype="bfloat16", work_items=VIT_BATCH),
+            f"K1 [{N_PATCHES}, {N_PATCHES}, {DIM}] (analytic operations and bytes)": measure_device(
+                lambda a, b: similarity_rect(a, b, a, b, 1.0, 1.0, False), (f, p), iters=20,
+                flops_override=ops, bytes_override=nbytes),
+        }
+        for label_, rep in cases.items():
+            s.timed(f"{label_}: {1e3 * rep['sec_per_call']:.4f} ms a call, "
+                    f"{rep['achieved_tflops']:.3f} TFLOP/s of {rep['flops_per_call']:.6g} FLOPs, mfu "
+                    f"{rep['mfu']:.4f} of {rep['peak_tflops']:.0f} TFLOP/s ({rep['mxu_dtype']}), "
+                    f"fraction_of_roofline {rep['fraction_of_roofline']:.4f} ({rep['bound']}-bound, "
+                    f"bytes {rep['bytes_model']}), low_snr {rep['low_snr']}")
+            s.check(rep["flops_per_call"] and 0 < rep["mfu"] <= 1 and not rep.get("suspect_roofline"),
+                    f"{label_}: 0 < mfu {rep['mfu']:.4f} <= 1, no suspect_roofline")
+        s.check(cases[next(iter(cases))]["device_kind"] == torch.cuda.get_device_name(0).lower(),
+                f"measure_device's device_kind {cases[next(iter(cases))]['device_kind']!r}")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -4292,9 +4651,13 @@ def main() -> int:
     s.phase("37. main path: mesh extraction", mesh_extraction_phase)
     s.phase("38. main path: data-parallel training", mesh_training_phase)
     s.phase("39. the multihost gang and the dry run on the card", gang_phase)
+    s.phase("40. main path: the flagship's serving artifact", export_phase)
+    s.phase("41. main path: the alignment and VAE artifacts", pretrained_export_phase)
+    s.phase("42. main path: reference import and the robustness sweep", import_robust_phase)
+    s.phase("43. device MFU accounting", mfu_phase)
     if world1:  # the NCCL world of 1 of phases 35-38
         torch.distributed.destroy_process_group()
-    for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run):
+    for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run, exported):
         if "dir" in d:
             shutil.rmtree(d["dir"], ignore_errors=True)
 

@@ -65,3 +65,43 @@ def h5_path_for_channel(channel: str) -> str:
     """``wsi=features`` -> ``wsi/features``; ``tma=cd3=features`` ->
     ``tma/cd3/features``."""
     return "/".join(channel.split("="))
+
+
+def get_available_channels() -> Dict[str, List[str]]:
+    """Grouped listing of all shorthand channel names, under the reference's
+    headings (``downstream_survival/main.py:570-574``)."""
+    return {
+        "WSI channels": ["wsi"],
+        "TMA Features channels": ["tma"] + list(TMA_MARKERS),
+        "TMA Patches channels": ["tma_patches"] + [f"{mk}_patches" for mk in TMA_MARKERS],
+        **{
+            f"{_GROUP_HEADINGS.get(grp, grp.capitalize())} channels": [
+                grp, f"{grp}_ori", f"{grp}_mask", f"{grp}_ori_mask"
+            ]
+            for grp in TABULAR_GROUPS
+        },
+    }
+
+
+_GROUP_HEADINGS = {"icd": "ICD", "tma_cell_density": "TMA Cell Density"}
+
+
+def channel_group(channel: str) -> str:
+    """Leading group of a channel string (``tma=cd3=features`` -> ``tma``)."""
+    return channel.split("=")[0]
+
+
+def is_mask_channel(channel: str) -> bool:
+    return channel.endswith("=mask")
+
+
+def mask_channel_for(channel: str) -> str:
+    """The mask channel companion for a tabular value channel."""
+    return f"{channel_group(channel)}=mask"
+
+
+def print_available_channels() -> None:
+    """Print all shorthand channel names grouped by category (reference:
+    ``downstream_survival/main.py:576-592``)."""
+    for group, names in get_available_channels().items():
+        print(f"{group}: {', '.join(names)}")

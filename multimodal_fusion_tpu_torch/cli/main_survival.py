@@ -321,5 +321,12 @@ def main(argv=None) -> Path:
     return run(args, dataset)
 
 
+def script_main(argv=None):
+    """Console-script entry: the wrapper exits with its return value, and
+    ``main`` returns a result for programmatic callers."""
+    main(argv)
+    return 0
+
+
 if __name__ == "__main__":
     main()

@@ -57,5 +57,12 @@ def main(argv=None):
         httpd.server_close()
 
 
+def script_main(argv=None):
+    """Console-script entry: the wrapper exits with its return value, and
+    ``main`` returns a result for programmatic callers."""
+    main(argv)
+    return 0
+
+
 if __name__ == "__main__":
     main()

@@ -26,6 +26,7 @@ import json
 import random
 import threading
 import time
+from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -107,6 +108,16 @@ def open_h5_retrying(h5_path, mode: str = "r", retries: int = 4, backoff: float 
     raise OSError(f"failed to open {path} after {retries} attempts: {last_err}")
 
 
+def read_channel(h5_path, channel: str, retries: int = 4, backoff: float = 0.05) -> np.ndarray:
+    """Read one channel (``group=dataset[=dataset]``) from a patient file."""
+    dset = h5_path_for_channel(channel)
+    return read_h5_retrying(h5_path, lambda f: np.asarray(f[dset]), retries, backoff)
+
+
+def has_channel(h5_path, channel: str) -> bool:
+    return read_h5_retrying(h5_path, lambda f: h5_path_for_channel(channel) in f)
+
+
 def write_channel(h5_path, channel: str, data: np.ndarray, compression: Optional[str] = "gzip") -> None:
     """Write/overwrite one channel dataset."""
     import h5py
@@ -118,6 +129,35 @@ def write_channel(h5_path, channel: str, data: np.ndarray, compression: Optional
             if dset in f:
                 del f[dset]
             f.create_dataset(dset, data=np.asarray(data), compression=compression)
+
+
+class PatientH5:
+    """Convenience wrapper around one patient file."""
+
+    def __init__(self, path):
+        self.path = Path(path)
+
+    def read(self, channel: str) -> np.ndarray:
+        return read_channel(self.path, channel)
+
+    def write(self, channel: str, data: np.ndarray) -> None:
+        write_channel(self.path, channel, data)
+
+    def has(self, channel: str) -> bool:
+        return has_channel(self.path, channel)
+
+    def channels(self) -> Dict[str, tuple]:
+        """Map of all dataset paths -> shapes."""
+        import h5py
+
+        out: Dict[str, tuple] = {}
+
+        def visit(name, obj):
+            if isinstance(obj, h5py.Dataset):
+                out[name] = obj.shape
+
+        read_h5_retrying(self.path, lambda f: f.visititems(visit))
+        return out
 
 
 HYPERGRAPH_KEYS = (

@@ -87,6 +87,13 @@ def load_state(path: str | Path, template: Mapping) -> Tuple[Dict, Dict[str, np.
     return restore(template, ""), extras
 
 
+def load_subtree(path: str | Path, template: Mapping, prefix: str) -> Dict:
+    """Restore only the keys under ``prefix/`` of a checkpoint into
+    ``template`` (e.g. the model of a ``{"model": ..., "opt": ...}``
+    checkpoint, without the optimizer's structure)."""
+    return load_state(path, {prefix: template})[0][prefix]
+
+
 def save_model(path: str | Path, model: torch.nn.Module,
                extra: Optional[Dict[str, Any]] = None) -> Path:
     return save_state(path, {"params": model.state_dict()}, extra)
