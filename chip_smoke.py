@@ -23,7 +23,12 @@ port's paths through their entry points:
   window step; remat's peak device memory of one window; its throughput
   and a profile of one window.  K4 (the
   attention backward) is held against its plain version at MFMF's three
-  block shapes first;
+  block shapes first, and K3 and K4 at mfmf_config1's two general blocks
+  ([64 x 8, 512 x 4096, 16] with the WSI bag's mask, [64 x 8, 4096 x 512,
+  16] with the markers' bucket mask), float32 and bf16; at the end (phase
+  44) mfmf_config1's fusion order is trained the same way (K3 and K4 on
+  their general routes), one 16-case window checked card vs CPU and one
+  window profiled, then one ``train_fold`` of mfmf_config2;
 - the flagship ``svd_gate_random_clam`` family's serving path, on which no
   TPU kernel lies: its eval forward at the width of
   ``combined_svd_gate_random_clam.sh`` on 16 of those cases, checked
@@ -131,6 +136,14 @@ MFMF_DIM, MFMF_HEADS = 128, 8
 MFMF_WSI = (2048, 4096)  # patches per WSI bag: one bucket of 4096
 MFMF_TMA = (9, 16)  # patches per TMA marker: one bucket of 64
 MFMF_TIMED_WINDOWS = 5
+# mfmf_config1.sh:39 and mfmf_config2.sh's fusion orders: in config1 the
+# "result" tokens of blocks 2 and 3 are the 8 markers' TMA tokens (512 rows
+# of 64-row buckets), so both sides of those blocks pass NARROW and K3 and
+# K4 take their general routes; config2 runs narrow_q blocks only
+MFMF_CONFIG1 = [{"q": "tma", "kv": "other"}, {"q": "result", "kv": "wsi"},
+                {"q": "reconstruct", "kv": "result"}]
+MFMF_CONFIG2 = [{"q": "other", "kv": "tma"}, {"q": "result", "kv": "reconstruct"},
+                {"q": "result", "kv": "wsi"}]
 
 # flagship svd_gate_random_clam (experiments/0.clam/svd_gate_random_clam/
 # combined_svd_gate_random_clam.sh): 1024-d inputs, model_size 64*32,
@@ -141,7 +154,7 @@ FLAG_DIM, FLAG_WINDOW = 128, 16
 # bench.py's inference cell (bench.py:231-251): windows of 8 cases x 4096
 # WSI x 32 TMA (cd3) patches x 1024 and clinical values, held on the card
 INF_BATCH, INF_WSI, INF_TMA, INF_BATCHES, INF_WINDOWS = 8, 4096, 32, 32, 5
-SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64, 160)
+SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64)  # a 160-case request took ~27 s of the time limit
 # bench.py's training cell (run_training_ours, bench.py:344-412): 16 steps
 # of 8 cases at the inference cell's shape
 BENCH_TRAIN_STEPS = 16
@@ -775,6 +788,22 @@ def main() -> int:
             for r in ROUTES:
                 main_path_routes[name][r] += fn.route_launches[r]
 
+    def mfmf_masks(rng):
+        """MFMF's key masks for a 64-case window: the 8 markers' 64-row
+        buckets with 9-16 valid rows each [64, 512], and the WSI bag's
+        4096-row bucket with 2048-4096 valid [64, 4096]."""
+        markers = torch.as_tensor(np.concatenate(
+            [np.arange(64)[None] < rng.integers(MFMF_TMA[0], MFMF_TMA[1] + 1, (MFMF_BATCH, 1))
+             for _ in range(8)], axis=1), device=dev)
+        wsi = torch.as_tensor(
+            np.arange(4096)[None] < rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1, (MFMF_BATCH, 1)), device=dev)
+        return markers, wsi
+
+    def config1_blocks(markers, wsi):
+        """(label, Tq, Tk, key mask) of mfmf_config1's two general blocks."""
+        return [("config1 block 2 result->wsi [64x8, 512x4096, 16]", 512, 4096, wsi),
+                ("config1 block 3 reconstruct->result [64x8, 4096x512, 16]", 4096, 512, markers)]
+
     def check_k1(label, rf, rp, cf, cp, bf16=False, stripe=4096, digest=False):
         """K1 against its plain version on the same inputs: max abs err <= 1e-5
         and two launches bit-identical.  The plain version runs in row
@@ -1187,16 +1216,18 @@ def main() -> int:
             s.check(l_err <= 1e-5, f"K3 {label}: l max rel err {l_err:.2e} <= 1e-5")
             return got, o_err
 
-        def timed(label, q, k, v, valid_k=None):
-            """Kernel, plain and SDPA (yardstick, no mask) times, and the
-            bound over the keys this call needs."""
+        def timed(label, q, k, v, valid_k=None, mask=None):
+            """Kernel, plain and SDPA (yardstick, with the same key mask)
+            times, and the bound over the keys this call needs (``valid_k``
+            a case)."""
             b, t_q, h, hd = q.shape
-            ms = s.cuda_ms(lambda: attention_fwd(q, k, v))
-            dev_ms = s.device_ms(lambda: attention_fwd(q, k, v))
+            ms = s.cuda_ms(lambda: attention_fwd(q, k, v, mask))
+            dev_ms = s.device_ms(lambda: attention_fwd(q, k, v, mask))
             route_ms["attention"]["general"][label] = {"ms": ms, "device_ms": sum(dev_ms.values())}
-            plain_ms = s.cuda_ms(lambda: plain_fused_attention(q, k, v), iters=5)
+            plain_ms = s.cuda_ms(lambda: plain_fused_attention(q, k, v, mask), iters=5)
             qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-            lib_ms = s.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt))
+            am = None if mask is None else mask[:, None, None, :]
+            lib_ms = s.cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=am))
             bound, by = _attention_bound_ms(b, h, t_q, valid_k or k.shape[1], hd, q.element_size())
             s.timed(f"K3 {label}: kernel {ms:.4f} ms (device {sum(dev_ms.values()):.4f} ms: "
                     + ", ".join(f"{n} {t:.4f}" for n, t in dev_ms.items())
@@ -1265,6 +1296,14 @@ def main() -> int:
             for route in (None, "general"):
                 check(f"[64x8, {t_q}x{t_k}, 16] bf16, ragged + all-masked kv_mask", q, k, v, mask,
                       route=route)
+        # (e) mfmf_config1's general blocks at full width (hd 16 unpadded),
+        # f32 and bf16, with MFMF's key masks, timed beside SDPA
+        for label, t_q, t_k, mask in config1_blocks(*mfmf_masks(rng)):
+            for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                q = draw((MFMF_BATCH, t_q, MFMF_HEADS, 16), dtype)
+                k, v = (draw((MFMF_BATCH, t_k, MFMF_HEADS, 16), dtype) for _ in range(2))
+                check(f"{label} {name}", q, k, v, mask)
+                timed(f"{label} {name}", q, k, v, float(mask.sum()) / MFMF_BATCH, mask)
 
     # ---------------------------------------------------------------- 9
     vit = {}  # extractors and the timed window, read by phase 10
@@ -1462,6 +1501,43 @@ def main() -> int:
             abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
             return got, args, abs_err
 
+        def check_k4_chunked(label, q, k, v, mask):
+            """K4 on its shape's route against the plain version, which runs
+            8 cases at a time (m, l from the plain forward, chunked alike):
+            relative L2 over all 64 cases at check_k4's bars, two launches
+            bit-identical.  Returns (args, max abs err)."""
+            m, l = (torch.empty((b, h, q.shape[1]), device=dev) for _ in range(2))
+            do = randn(tuple(q.shape), q.dtype)
+            dsum = torch.empty_like(m)
+            for c0 in range(0, b, 8):
+                o, m[c0:c0 + 8], l[c0:c0 + 8] = plain_fused_attention(
+                    q[c0:c0 + 8], k[c0:c0 + 8], v[c0:c0 + 8], mask[c0:c0 + 8])
+                dsum[c0:c0 + 8] = (do[c0:c0 + 8].float() * o.float()).sum(-1).transpose(1, 2)
+            args = (q, k, v, do, m, l, dsum, mask)
+            before = dict(attention_bwd.route_launches)
+            got = attention_bwd(*args)
+            again = attention_bwd(*args)
+            ran = [r for r in ROUTES if attention_bwd.route_launches[r] != before[r]]
+            label = f"{label} ({'/'.join(ran)} route)"
+            torch.cuda.synchronize()
+            s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                    f"K4 {label}: two launches bit-identical")
+            del again
+            diff2, ref2, abs_err = [0.0] * 3, [0.0] * 3, 0.0
+            for c0 in range(0, b, 8):
+                want = plain_fused_attention_bwd(*(a[c0:c0 + 8] for a in args))
+                for i, (g_, w) in enumerate(zip(got, want)):
+                    g8, w8 = g_[c0:c0 + 8].float(), w.float()
+                    diff2[i] += float(((g8 - w8) ** 2).sum())
+                    ref2[i] += float((w8 ** 2).sum())
+                    abs_err = max(abs_err, float((g8 - w8).abs().max()))
+                del want
+            errs = [(d / max(r, 1e-300)) ** 0.5 for d, r in zip(diff2, ref2)]
+            bar = 1e-5 if q.dtype == torch.float32 else 1e-2
+            s.check(max(errs) <= bar, f"K4 {label}: relative L2 over 64 cases (plain in chunks of 8) dq "
+                                      f"{errs[0]:.2e}, dk {errs[1]:.2e}, dv {errs[2]:.2e} <= {bar:g}")
+            return args, abs_err
+
         def check_k3(label, q, k, v, mask, route=None):
             before = dict(attention_fwd.route_launches)
             got = attention_fwd(q, k, v, mask, route=route)
@@ -1548,11 +1624,7 @@ def main() -> int:
         # the 4096-bucket WSI bag (2048-4096 valid), and the reconstructed
         # bag's 4096 tokens against the 5 result tokens (no key mask).  Each
         # on its own (narrow) route and on the general route, same inputs.
-        markers = torch.as_tensor(np.concatenate(
-            [np.arange(64)[None] < rng.integers(MFMF_TMA[0], MFMF_TMA[1] + 1, (b, 1))
-             for _ in range(8)], axis=1), device=dev)
-        wsi = torch.as_tensor(np.arange(4096)[None] < rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1, (b, 1)),
-                              device=dev)
+        markers, wsi = mfmf_masks(rng)
         blocks = [("block 1 other->tma [64x8, 5x512, 16]", 5, 512, markers),
                   ("block 2 result->wsi [64x8, 5x4096, 16]", 5, 4096, wsi),
                   ("block 3 reconstruct->result [64x8, 4096x5, 16]", 4096, 5, None)]
@@ -1596,6 +1668,34 @@ def main() -> int:
             "plain_ms": window["plain_ms"], "bound_ms": bound, "bound_by": by,
             "library_ms": window["library_ms"],
         }
+        # (a2) mfmf_config1's blocks 2 and 3 on the general route (hd 16
+        # unpadded), f32 and bf16, with the WSI and bucket key masks; the
+        # plain version runs 8 cases at a time (its float32 scores of all 64
+        # would take GiBs); the bound counts the keys each case keeps
+        c1 = {}
+        for label, t_q, t_k, mask in config1_blocks(markers, wsi):
+            for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
+                q, k, v = randn((b, t_q, h, hd), dtype), randn((b, t_k, h, hd), dtype), randn((b, t_k, h, hd), dtype)
+                args, err = check_k4_chunked(f"{label} {name}", q, k, v, mask)
+                c1[(label, name)] = timed(f"{label} {name}", args, int(mask.sum()), k3=True)
+                c1[(label, name)]["err"] = err
+                del q, k, v, args
+        for name in ("f32", "bf16"):
+            tot = {key: sum(c1[(lb, name)][key] for lb, *_ in config1_blocks(markers, wsi))
+                   for key in ("ms", "device_ms", "k3_ms", "k3_device_ms", "ops", "bytes")}
+            bound, by = _bound_ms(tot["ops"], tot["bytes"], 4 if name == "f32" else 2)
+            s.timed(f"K4 + K3, mfmf_config1's general blocks 2 and 3 ({name}), one 64-case window: K4 "
+                    f"{tot['ms']:.4f} ms (device {tot['device_ms']:.4f} ms), K3 {tot['k3_ms']:.4f} ms "
+                    f"(device {tot['k3_device_ms']:.4f} ms); K4 bound {bound:.4f} ms ({by}, valid keys)")
+        s.kernels["attention_bwd"]["config1"] = {
+            f"{lb} {nm}": {"ms": r["ms"], "device_ms": r["device_ms"],
+                           "plain_ms": r["plain_ms"], "library_ms": r["library_ms"], "max_abs_err": r["err"],
+                           "bound_ms": _bound_ms(r["ops"], r["bytes"], 4 if nm == "f32" else 2)[0]}
+            for (lb, nm), r in c1.items()}
+        if "attention" in s.kernels:
+            s.kernels["attention"]["config1"] = {
+                f"{lb} {nm}": {"ms": r["k3_ms"], "device_ms": r["k3_device_ms"], "bound_ms": r["k3_bound"]}
+                for (lb, nm), r in c1.items()}
         # the wrappers' own host time, which event-timed calls at MFMF's
         # small shapes include
         q1, st = randn((1, 8, 1, 16)), torch.zeros((1, 1, 8), device=dev)
@@ -1685,24 +1785,33 @@ def main() -> int:
             s.log(f"  {MFMF_CASES} in-memory cases drawn in {time.perf_counter() - t0:.1f} s (host)")
         return drawn["cases"]
 
-    def mfmf_phase():
-        """The slice's main path: MFMF survival training at mfmf_config0
-        width through ``SurvivalTrainer.train_fold``."""
+    def mfmf_configs(order, name):
+        """(ModelConfig, ExperimentConfig) of the mfmf_config scripts: 1024-d
+        inputs, output_dim 128, 8 heads, model_size 64*32, inst_number 8,
+        dropout 0.25, the 7 channel groups, Adam lr 1e-4 with coupled L2
+        1e-5, the plateau scheduler, windows of 64; ``order`` the script's
+        fusion order."""
         chans = parse_channels(["wsi", "tma"] + [f"{g}_mask" for g in TABULAR_DIMS])
-        raws, labels = mfmf_raw_cases()
-        ds = _CaseTable(raws, labels)
-        s.log(f"  {MFMF_CASES} in-memory cases, {len(chans)} channels")
         mc = ModelConfig(model_type="mfmf", n_classes=2, input_dim=DIM, model_size="64*32",
                          dropout=0.25, inst_number=8, base_weight=0.9, subtyping=True,
                          output_dim=MFMF_DIM, channels_used_in_model=chans,
                          channel_input_dims={f"{g}=val": d for g, d in TABULAR_DIMS.items()},
-                         fusion_blocks_sequence=DEFAULT_FUSION_SEQUENCE)
+                         fusion_blocks_sequence=order)
         mc.extra["attention_num_heads"] = MFMF_HEADS
-        ec = ExperimentConfig(exp_name="mfmf_config0", seed=5678, k_folds=MFMF_FOLDS,
+        ec = ExperimentConfig(exp_name=name, seed=5678, k_folds=MFMF_FOLDS,
                               max_epochs=MFMF_EPOCHS, batch_size=MFMF_BATCH, lr=1e-4,
                               optimizer="adam", weight_decay=1e-5, scheduler="plateau",
                               scheduler_params={"mode": "min", "patience": 15, "factor": 0.5},
                               device_data=True)
+        return mc, ec
+
+    def mfmf_phase():
+        """The slice's main path: MFMF survival training at mfmf_config0
+        width through ``SurvivalTrainer.train_fold``."""
+        raws, labels = mfmf_raw_cases()
+        ds = _CaseTable(raws, labels)
+        mc, ec = mfmf_configs(DEFAULT_FUSION_SEQUENCE, "mfmf_config0")
+        s.log(f"  {MFMF_CASES} in-memory cases, {len(mc.channels_used_in_model)} channels")
         split = create_k_fold_splits(ds.labels, MFMF_FOLDS, ec.seed)[0]
         sizes = (len(split.train_idx), len(split.val_idx), len(split.test_idx))
         s.check(sizes == (128, 16, 16), f"fold 0: {sizes} train/val/test cases")
@@ -3321,11 +3430,12 @@ def main() -> int:
         pre["volume_step"] = lambda: vol._step(*next(vol_stream),
                                                torch.Generator(device=dev).manual_seed(0))
         # the host collate decompresses each of a batch's 8192 NPZ rows' cores
-        # (~2.7 s a step): 3 windows of 2 steps
+        # (~2.7-4.3 s a step): one window of 2 steps, so that the script keeps
+        # inside its time limit
         off = alignment_trainer(dev, "volume")
         timed_steps("volume step, device_data off", off,
                     off.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), False),
-                    windows=3, steps=2, warmup=1)
+                    windows=1, steps=2, warmup=1)
         r1 = alignment_trainer(dev, "rank1", "gram")
         r1_stream = r1.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), True)
         pre["rank1_ms"] = timed_steps("rank1 'gram' step (Jacobi eigensolver), device_data on", r1,
@@ -4612,6 +4722,150 @@ def main() -> int:
         s.check(cases[next(iter(cases))]["device_kind"] == torch.cuda.get_device_name(0).lower(),
                 f"measure_device's device_kind {cases[next(iter(cases))]['device_kind']!r}")
 
+    # ---------------------------------------------------------------- 44
+    def mfmf_config1_phase():
+        """mfmf_config1's fusion order at full width through ``train_fold``
+        (K3 and K4 on their general routes for blocks 2 and 3, narrow_k for
+        block 1), its training rate on the device tables, one 16-case window
+        card vs CPU at phase 12's bars, a profile of one window; then one
+        ``train_fold`` of mfmf_config2 (narrow_q blocks only)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        raws, labels = mfmf_raw_cases()
+        ds = _CaseTable(raws, labels)
+        mc, ec = mfmf_configs(MFMF_CONFIG1, "mfmf_config1")
+        split = create_k_fold_splits(ds.labels, MFMF_FOLDS, ec.seed)[0]
+        sizes = (len(split.train_idx), len(split.val_idx), len(split.test_idx))
+        n_train = MFMF_EPOCHS * -(-sizes[0] // MFMF_BATCH)
+        n_eval = (MFMF_EPOCHS + 1) * -(-sizes[1] // 16) + -(-sizes[2] // 16)
+        td = Path(tempfile.mkdtemp(prefix="mfmf1_"))
+        try:
+            tr = SurvivalTrainer(Configs(ec, mc), td / "config1", device=dev)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary = tr.train_fold(ds, split, 0)
+            wall = time.perf_counter() - t0
+            add_main_path_counts()
+            s.timed(f"mfmf_config1 train_fold: {MFMF_EPOCHS} epochs of {sizes[0]} cases + evaluation "
+                    f"in {wall:.2f} s")
+            # blocks 2 and 3 (512 result tokens against 4096 WSI, 4096
+            # reconstructed against 512) general, block 1 (512 TMA tokens
+            # against 5 tabular) narrow_k
+            want_fwd = {"general": 2 * (n_train + n_eval), "narrow_q": 0, "narrow_k": n_train + n_eval}
+            want_bwd = {"general": 2 * n_train, "narrow_q": 0, "narrow_k": n_train}
+            s.check(attention_fwd.route_launches == want_fwd and attention_bwd.route_launches == want_bwd,
+                    f"mfmf_config1: routes K3 {attention_fwd.route_launches}, K4 "
+                    f"{attention_bwd.route_launches} (want {want_fwd}, {want_bwd}: K4 general twice a "
+                    f"train window, {n_train} windows)")
+            hist = summary["history"]
+            probs = [p_["prob"] for p_ in json.loads((td / "config1" / "fold_0_summary.json").read_text())
+                     ["patient_results"].values()]
+            s.check(all(np.isfinite([h_["train_loss"], h_["val_loss"]]).all() for h_ in hist)
+                    and np.isfinite(probs).all() and np.asarray(probs).shape == (sizes[2], 2),
+                    f"mfmf_config1: losses finite, {len(probs)} test probabilities finite")
+            s.log("  history: " + "; ".join(
+                f"epoch {h_['epoch']}: train {h_['train_loss']:.6f} val {h_['val_loss']:.6f} "
+                f"auc {h_['val_auc']:.4f}" for h_ in hist))
+
+            # the device path's rate: 64-case windows (row gather + the
+            # trainer's step) after a warm-up
+            all_idx = np.concatenate([split.train_idx, split.val_idx, split.test_idx]).astype(np.int64)
+            tables, row_of = tr._device_tables(ds, all_idx)
+            rows = torch.as_tensor([row_of[int(i)] for i in split.train_idx], dtype=torch.int64)
+            model = tr._build_model(0)
+            opt = make_optimizer(ec.optimizer, ec.weight_decay, model.parameters(), ec.lr)
+            gen = torch.Generator(device=dev).manual_seed(0)
+
+            def device_window(i):
+                idx = rows[(i % 2) * MFMF_BATCH:(i % 2 + 1) * MFMF_BATCH].to(dev)
+                return tr._train_step(model, opt, tr._gather_window(tables, idx), gen)
+
+            device_window(0)
+            torch.cuda.synchronize()
+            walls = []
+            for i in range(MFMF_TIMED_WINDOWS):
+                t0 = time.perf_counter()
+                device_window(i + 1)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            rates = sorted(MFMF_BATCH / w for w in walls)
+            s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+            s.timed(f"mfmf_config1 training, device path: median {MFMF_BATCH / float(np.median(walls)):.1f} "
+                    f"cases/s over {MFMF_TIMED_WINDOWS} windows of {MFMF_BATCH} (min {rates[0]:.1f}, "
+                    f"max {rates[-1]:.1f}; median window {1e3 * float(np.median(walls)):.2f} ms)")
+
+            # one window's device time by kernel
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                device_window(1)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            events = _device_events(prof)
+            if events:
+                busy_ms = sum(us for _, us in events) / 1e3
+                k3_ms = sum(us for e, us in events if "attn_" in e.key and "attn_bwd" not in e.key) / 1e3
+                k4_ms = sum(us for e, us in events if "attn_bwd" in e.key) / 1e3
+                s.timed(f"one mfmf_config1 {MFMF_BATCH}-case training window under torch.profiler: wall "
+                        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, K3 {k3_ms:.3f} ms, K4 {k4_ms:.3f} "
+                        f"ms ({100 * (k3_ms + k4_ms) / busy_ms:.1f}% of device time), "
+                        f"{sum(e.count for e, _ in events)} device ops")
+                for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
+                    s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+            else:
+                s.log("  profiler saw no device time: the window's kernels not measured")
+
+            # one 16-case window's gradients on the card against a CPU run of
+            # the port from the same weights and window (phase 12's bars)
+            window = tr._gather_window(tables, rows[:16].to(dev))
+            card = tr._build_model(0)
+            host = ModelFactory.create_model(mc, device="cpu")
+            host.load_state_dict({k: t_.cpu() for k, t_ in card.state_dict().items()})
+            cpu_tr = SurvivalTrainer(Configs(ec, mc), td / "cpu", device="cpu")
+            cpu_window = {"channels": {k: t_.cpu() for k, t_ in window["channels"].items()},
+                          "masks": {k: t_.cpu() for k, t_ in window["masks"].items()},
+                          "label": window["label"].cpu()}
+            loss_card = float(tr._train_step(card, torch.optim.SGD(card.parameters(), lr=0.0), window,
+                                             torch.Generator(device=dev)))
+            t0 = time.perf_counter()
+            loss_cpu = float(cpu_tr._train_step(host, torch.optim.SGD(host.parameters(), lr=0.0),
+                                                cpu_window, torch.Generator()))
+            s.log(f"  CPU run of one 16-case window: {time.perf_counter() - t0:.1f} s (host)")
+            cpu_grads = {n: p_.grad for n, p_ in host.named_parameters()}
+            errs = {}
+            for n, p_ in card.named_parameters():  # k_proj biases as in phase 12
+                scale = cpu_grads[n.replace("k_proj.bias", "k_proj.weight")].norm()
+                errs[n] = float((p_.grad.cpu() - cpu_grads[n]).norm() / scale.clamp_min(1e-30))
+            worst = max(errs, key=errs.get)
+            s.log("  largest gradient errors: " + ", ".join(
+                f"{n} {errs[n]:.2e}" for n in sorted(errs, key=errs.get, reverse=True)[:4]))
+            s.check(errs[worst] <= 1e-4, f"mfmf_config1, one 16-case window's gradients, card vs CPU: "
+                                         f"worst relative L2 {errs[worst]:.2e} <= 1e-4 over {len(errs)} "
+                                         f"tensors ({worst})")
+            rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
+            s.check(rel <= 1e-5, f"mfmf_config1, one 16-case window's loss, card {loss_card!r} vs CPU "
+                                 f"{loss_cpu!r}: relative {rel:.2e} <= 1e-5")
+            del host, cpu_window, cpu_grads, card, model, opt, tables
+
+            # mfmf_config2: every block has the 5 tabular tokens on its q side
+            mc2, ec2 = mfmf_configs(MFMF_CONFIG2, "mfmf_config2")
+            tr2 = SurvivalTrainer(Configs(ec2, mc2), td / "config2", device=dev)
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            summary2 = tr2.train_fold(ds, split, 0)
+            wall = time.perf_counter() - t0
+            add_main_path_counts()
+            want_fwd = {"general": 0, "narrow_q": 3 * (n_train + n_eval), "narrow_k": 0}
+            want_bwd = {"general": 0, "narrow_q": 3 * n_train, "narrow_k": 0}
+            s.check(attention_fwd.route_launches == want_fwd and attention_bwd.route_launches == want_bwd,
+                    f"mfmf_config2 train_fold ({wall:.2f} s): routes K3 {attention_fwd.route_launches}, "
+                    f"K4 {attention_bwd.route_launches} (want {want_fwd}, {want_bwd})")
+            s.check(all(np.isfinite([h_["train_loss"], h_["val_loss"]]).all() for h_ in summary2["history"]),
+                    "mfmf_config2: losses finite")
+        finally:
+            shutil.rmtree(td, ignore_errors=True)
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -4655,6 +4909,7 @@ def main() -> int:
     s.phase("41. main path: the alignment and VAE artifacts", pretrained_export_phase)
     s.phase("42. main path: reference import and the robustness sweep", import_robust_phase)
     s.phase("43. device MFU accounting", mfu_phase)
+    s.phase("44. main path: MFMF mfmf_config1 and mfmf_config2 training", mfmf_config1_phase)
     if world1:  # the NCCL world of 1 of phases 35-38
         torch.distributed.destroy_process_group()
     for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run, exported):

@@ -56,8 +56,10 @@
 //   keeps its own (m, l, acc) for the rows; a second launch combines the
 //   blocks' partials in chunk order (m is a max, so it stays exact).  The
 //   bytes of k and v bound it; a user-masked key's k is never read.
-// hd is padded with zeros to 32, 64 or 128 on the general route and to 16,
-// 32, 64 or 128 on the narrow ones (hd <= 128).  wgmma and TMA are not used.
+// hd is padded with zeros to 16, 32, 64 or 128 on every route (hd <= 128);
+// at hd 16 each f32 general-route thread owns a pair of output dims.  The
+// async copies, ldmatrix and mma.sync helpers are attention_common.cuh's,
+// shared with K4.  wgmma and TMA are not used.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -96,47 +98,16 @@ __device__ __forceinline__ float apply_colstate(float s, int8_t st) {
   return st == kOutside ? -INFINITY : (st == kMasked ? kNegInf : s);
 }
 
-// ------------------------------------------------------- async copies
-
-// 16-byte global -> shared copy of which the first ``bytes`` (0..16) are
-// read and the rest zero-filled; both addresses 16-byte aligned
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// rows [r0, r0 + 64) of a [T, hd] slice (token stride st, elements of T)
-// into a shared tile of row stride LD elements, HD columns, zero past T and
-// hd, as 16-byte cp.async copies
-template <typename E, int HD, int LD>
-__device__ __forceinline__ void copy_tile(E* dst, const E* src, long long st, int r0, int n_rows,
-                                          int hd) {
-  constexpr int PER = 16 / sizeof(E);  // elements per 16-byte chunk
-  constexpr int CH = HD / PER;         // chunks per row
-  for (int i = threadIdx.x; i < 64 * CH; i += NT) {
-    const int r = i / CH, c = i - (i / CH) * CH;
-    const int g = r0 + r;
-    const int left = (hd - c * PER) * static_cast<int>(sizeof(E));
-    const int bytes = g < n_rows ? max(0, min(16, left)) : 0;
-    const E* from = bytes > 0 ? src + g * st + c * PER : src;
-    cp_async16(dst + r * LD + c * PER, from, bytes);
-  }
-}
-
 // ---------------------------------------------------------------- float32
 
 template <int HD>
 __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
   constexpr int LD = HD + 4;    // Q/K/V row stride (floats): conflict-free float4 reads
   constexpr int LDP = BKV + 4;  // P row stride
-  constexpr int NV = HD / 32;   // float4 groups of output dims per thread
+  // output dims per thread: NV float4 groups, dims e*32 + tx*4 + 0..3; at
+  // hd 16 one pair, dims tx*2 + 0..1 (the group's z and w stay unused)
+  constexpr int NV = HD >= 32 ? HD / 32 : 1;
+  constexpr int XN = HD >= 32 ? 4 : 2;
   constexpr int TILE = BKV * LD;
   extern __shared__ float4 smem_f4[];
   float* Qs = reinterpret_cast<float*>(smem_f4);
@@ -274,8 +245,14 @@ __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
       for (int cc = 0; cc < 4; ++cc) {
         float4 vv[NV];
 #pragma unroll
-        for (int e = 0; e < NV; ++e)
-          vv[e] = *reinterpret_cast<const float4*>(&Vt[(c + cc) * LD + e * 32 + tx * 4]);
+        for (int e = 0; e < NV; ++e) {
+          if constexpr (HD >= 32) {
+            vv[e] = *reinterpret_cast<const float4*>(&Vt[(c + cc) * LD + e * 32 + tx * 4]);
+          } else {
+            const float2 v2 = *reinterpret_cast<const float2*>(&Vt[(c + cc) * LD + tx * 2]);
+            vv[e] = make_float4(v2.x, v2.y, 0.f, 0.f);
+          }
+        }
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float pc = cc == 0 ? pv[i].x : cc == 1 ? pv[i].y : cc == 2 ? pv[i].z : pv[i].w;
@@ -302,8 +279,8 @@ __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
     for (int e = 0; e < NV; ++e) {
       const float vals[4] = {acc[i][e].x, acc[i][e].y, acc[i][e].z, acc[i][e].w};
 #pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int d = e * 32 + tx * 4 + x;
+      for (int x = 0; x < XN; ++x) {
+        const int d = HD >= 32 ? e * 32 + tx * 4 + x : tx * 2 + x;
         if (d < p.hd) orow[d] = vals[x] * inv;
       }
     }
@@ -315,35 +292,6 @@ __global__ void __launch_bounds__(NT) attn_f32_kernel(const Params p) {
 }
 
 // ---------------------------------------------------------------- bfloat16
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* ptr) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-// d += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
 
 // Fragment layouts (PTX ISA, mma.m16n8k16, g = lane / 4, t = lane % 4):
 //   A regs: (row g, cols 2t..2t+1), (g+8, 2t..), (g, 2t+8..), (g+8, 2t+8..)
@@ -860,6 +808,10 @@ extern "C" int mmf_attention_fwd(int is_bf16, int route, const void* q, const vo
     return is_bf16 ? launch_narrow_hd<bf16>(route, p, s) : launch_narrow_hd<float>(route, p, s);
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  if (hd <= 16) {
+    return is_bf16 ? launch<attn_bf16_kernel<16>>(bf16_smem<16>(), p, grid, s)
+                   : launch<attn_f32_kernel<16>>(f32_smem<16>(), p, grid, s);
+  }
   if (hd <= 32) {
     return is_bf16 ? launch<attn_bf16_kernel<32>>(bf16_smem<32>(), p, grid, s)
                    : launch<attn_f32_kernel<32>>(f32_smem<32>(), p, grid, s);

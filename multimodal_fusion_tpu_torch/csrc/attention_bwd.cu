@@ -16,49 +16,66 @@
 //
 // Keys past Tk take no part.  An all-masked row gets the uniform p = 1/l
 // (dv flows) and ds = 0 (dq = dk = 0), as the forward's where makes every
-// score a constant.  Scores, p, ds and every sum are float32.  bf16 inputs
-// are read into float32 tiles (bf16 products are exact in f32), ds is
-// rounded to bf16 before the dq and dk products and pd before the dv
-// product, as the JAX kernel casts them to the operand dtype; outputs are
-// stored in the input dtype.  The float32 path runs true f32 FMAs (no TF32).
+// score a constant.  Scores, p, ds and every sum are float32 (bf16 products
+// are exact in f32: the narrow routes widen bf16 inputs, the general route
+// accumulates its mma.sync products in f32), ds is rounded to bf16 before
+// the dq and dk products and pd before the dv product, as the JAX kernel
+// casts them to the operand dtype; outputs are stored in the input dtype.
+// The float32 path runs true f32 FMAs (no TF32).
 //
 // Deterministic, no atomics.  Three routes (the wrapper picks one by shape,
 // ops/attention_kernel.py):
 //
-// general (both sides > NARROW): two launches.
-//   dkdv: one block per (batch*head, 64-key tile) holds its K and V tile in
-//         shared memory and walks every 64-row q tile in order, summing dk
-//         and dv in registers;
-//   dq:   one block per (batch*head, 64-row q tile) holds its q and do tile
-//         and walks every key tile in order, summing dq in registers.
-//   Both recompute s and dp in 64 x 64 tiles with K3's thread layout: 128
-//   threads, each owning 4 rows x 8 keys of a score tile; p and ds go
-//   through shared memory for the second products.  hd pads to 32, 64, 128.
-// narrow_k (Tk <= NARROW; MFMF's block 3, 4096 q rows against 5 keys): the
-//   keys' k and v sit whole in shared memory; each q row belongs to HD/16
-//   lanes (16 dims each, 16-byte loads) that compute s, dp, p, pd and ds
-//   against every key, so its dq row is complete in place.  dk and dv are
-//   sums over the long q axis: each block sums its 128/(HD/16) rows in a
+// general (both sides > NARROW; MFMF config1's blocks 2 and 3, the bag
+//   shape): two launches, dkdv (a block owns 64 keys, 32 at hd 128 in
+//   float32, and walks every q tile) and dq (a block owns 64 q rows and
+//   walks the key tiles), each recomputing s and dp.  The streamed q/do or
+//   k/v tiles pass through a two-slot ring of 16-byte cp.async copies (tile
+//   j+1 copies while tile j computes, one barrier a tile).  Keys go in runs
+//   of 16: where a case has a valid key, a run without one is skipped (its
+//   p is 0 in float32), dq streaming tiles gathered from the list of runs
+//   with work and dkdv spreading its runs with work over all its threads.
+//   float32: each owned row's 16-dim slices of q and do (k and v) live in
+//   registers (one row a thread at hd 16, two wider), and the thread's
+//   outputs sum over its interleaved share of the streamed columns, 8
+//   float4 shared loads per column and row pair for 64 FMAs a row; a fixed
+//   butterfly adds the shares (see GenF32).
+//   bf16: mma.sync m16n8k16 for all five products, fragments by ldmatrix /
+//   ldmatrix.trans as K3's bf16 route; ds and pd are re-packed in registers
+//   as A operands after their bf16 rounding.  p comes from the saved m and
+//   1/l through the SFU's exp2 (grad_fast).  hd is instantiated at 16, 32,
+//   64 and 128 (hd 16 unpadded).
+// narrow_k (Tk <= NARROW; MFMF config0's block 3, 4096 q rows against 5
+//   keys): the keys' k and v sit whole in shared memory; each q row belongs
+//   to HD/16 lanes (16 dims each, 16-byte loads) that compute s, dp, p, pd
+//   and ds against every key, so its dq row is complete in place.  dk and dv
+//   are sums over the long q axis: each block sums its 128/(HD/16) rows in a
 //   fixed order through shared memory, and a second small launch adds the
 //   blocks' float32 partials in chunk order.
-// narrow_q (Tq <= NARROW; blocks 1 and 2, 5 rows against 512 or 4096 keys):
-//   the mirror image.  q, do and the row statistics sit in shared memory,
-//   each key belongs to HD/16 lanes, its dk and dv rows are complete in
-//   place, and dq is the fixed-order sum.  A user-masked key reads neither
-//   k nor v (its ds is 0 and its pd needs only m and l).
+// narrow_q (Tq <= NARROW; config0's blocks 1 and 2, 5 rows against 512 or
+//   4096 keys): the mirror image.  q, do and the row statistics sit in
+//   shared memory, each key belongs to HD/16 lanes, its dk and dv rows are
+//   complete in place, and dq is the fixed-order sum.  A user-masked key
+//   reads neither k nor v (its ds is 0 and its pd needs only m and l).
 // The narrow routes instantiate hd 16, 32, 64 and 128 (no padding of hd 16).
 //
 // Bound on the H100: the work is 5 products of 2*Tq*Tk*hd per (batch,
-// head), 10*B*H*Tq*Tk*hd FLOPs, against q, k, v, do, dq, dk, dv bytes (m, l
-// and dsum beside them).  At MFMF's shapes (hd = 16, Tq or Tk = 5) the
-// bytes of the long side bound it: the narrow routes read each long-side
-// row once.  Not yet done: tensor cores (mma.sync / wgmma) for bf16 and a
-// K/V ring on the general route.
+// head), 10*B*H*Tq*Tk*hd FLOPs (counting the keys a case keeps), against q,
+// k, v, do, dq, dk, dv bytes (m, l and dsum beside them).  At MFMF
+// config0's shapes (hd = 16, Tq or Tk = 5) the bytes of the long side bound
+// it: the narrow routes read each long-side row once.  At config1's general
+// shapes ([512 x 4096] and [4096 x 512], hd 16) the float32 operations
+// bound it (67 TFLOP/s without tensor cores); the general route spends 7
+// products where 5 are the least, and at hd 16 the exp and the masks of each
+// score cost about a third of its FMAs.  Not yet done: wgmma and an
+// error-compensated 3xTF32 float32 path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "attention_common.cuh"
 
@@ -87,341 +104,9 @@ struct BwdParams {
   int dropout;
 };
 
-// rows [r0, r0 + 64) of a [T, hd] slice (token stride st) into a float tile
-// of row stride LD, zero past T and hd
-template <typename T, int HD>
-__device__ __forceinline__ void load_tile(float* dst, const T* src, long long st, int r0, int n_rows,
-                                          int hd) {
-  constexpr int LD = HD + 4;
-  for (int i = threadIdx.x; i < BQ * HD; i += NT) {
-    const int r = i / HD, d = i % HD;
-    const int g = r0 + r;
-    dst[r * LD + d] = (g < n_rows && d < hd) ? to_f(src[g * st + d]) : 0.f;
-  }
-}
-
-// acc[i][j] = sum_d A[rows ty + 16 i, d] * B[rows tx + 8 j, d] over float tiles
-template <int HD>
-__device__ __forceinline__ void tile_dots(float (&acc)[4][8], const float* A, const float* Bt, int ty,
-                                          int tx) {
-  constexpr int LD = HD + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-#pragma unroll
-  for (int d = 0; d < HD; d += 4) {
-    float4 av[4], bv[8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(&A[(ty + 16 * i) * LD + d]);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) bv[j] = *reinterpret_cast<const float4*>(&Bt[(tx + 8 * j) * LD + d]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        float a = acc[i][j];
-        a = fmaf(av[i].x, bv[j].x, a);
-        a = fmaf(av[i].y, bv[j].y, a);
-        a = fmaf(av[i].z, bv[j].z, a);
-        a = fmaf(av[i].w, bv[j].w, a);
-        acc[i][j] = a;
-      }
-  }
-}
-
-// p, pd and ds of one score tile in place: s -> pd (rounded to T), dp -> ds
-// (rounded to T).  Row stats of this thread's rows: rm (m), rr (1 / l), rd
-// (dsum), valid (row < Tq).  colstate from the key tile.
-template <typename T>
-__device__ __forceinline__ void grad_tile(const BwdParams& p, float (&s)[4][8], float (&dp)[4][8],
-                                          const float* rm, const float* rr, const float* rd,
-                                          const bool* valid, const int8_t* colstate, uint32_t seed,
-                                          int h, int q0, int k0, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int8_t st = colstate[tx + 8 * j];
-      const float sv = st == kMasked ? kNegInf : s[i][j] * p.scale;
-      const float pr = expf(sv - rm[i]) * rr[i];
-      float pd = pr, dpv = dp[i][j];
-      if (p.dropout) {
-        const bool kp = keep(seed, p.threshold, p.Tq, p.Tk, h, q0 + ty + 16 * i, k0 + tx + 8 * j);
-        pd = kp ? pr * p.keep_scale : 0.f;
-        dpv = kp ? dpv * p.keep_scale : 0.f;
-      }
-      float ds = pr * (dpv - rd[i]) * p.scale;
-      if (st != kValid || !valid[i]) ds = 0.f;
-      if (st == kOutside || !valid[i]) pd = 0.f;
-      s[i][j] = round_to<T>(pd);
-      dp[i][j] = round_to<T>(ds);
-    }
-  }
-}
-
-template <int HD>
-constexpr size_t dkdv_smem() {
-  return sizeof(float) * (4 * BKV * (HD + 4) + 2 * BQ * (BKV + 4));
-}
-
-template <int HD>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (4 * BKV * (HD + 4) + BQ * (BKV + 4));
-}
-
-// ------------------------------------------------------------- dk and dv
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) attn_bwd_dkdv_kernel(const BwdParams p) {
-  constexpr int LD = HD + 4;
-  constexpr int LDP = BKV + 4;
-  constexpr int NV = HD / 32;  // float4 groups of output dims per thread
-  extern __shared__ float4 smem_f4[];
-  float* Ks = reinterpret_cast<float*>(smem_f4);
-  float* Vs = Ks + BKV * LD;
-  float* Qs = Vs + BKV * LD;
-  float* Ds = Qs + BQ * LD;   // do tile
-  float* Ps = Ds + BQ * LD;   // pd [q][key]
-  float* Ss = Ps + BQ * LDP;  // ds [q][key]
-  __shared__ int8_t colstate[BKV];
-  __shared__ float row_m[BQ], row_r[BQ], row_d[BQ];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int k0 = blockIdx.y * BKV;
-  const uint32_t seed = case_seed(p.seeds, p.seed, b);
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dg = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long stat0 = static_cast<long long>(bh) * p.Tq;
-
-  load_tile<T, HD>(Ks, kg, p.k_st, k0, p.Tk, p.hd);
-  load_tile<T, HD>(Vs, vg, p.v_st, k0, p.Tk, p.hd);
-  load_colstate(p.mask, p.mask_sb, p.Tk, b, k0, colstate);
-
-  // dk, dv of keys ty + 16 i, dims e*32 + tx*4 + 0..3
-  float4 dk[4][NV], dv[4][NV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < NV; ++e) {
-      dk[i][e] = make_float4(0.f, 0.f, 0.f, 0.f);
-      dv[i][e] = make_float4(0.f, 0.f, 0.f, 0.f);
-    }
-
-  for (int q0 = 0; q0 < p.Tq; q0 += BQ) {
-    __syncthreads();  // the previous tile's second products are done
-    load_tile<T, HD>(Qs, qg, p.q_st, q0, p.Tq, p.hd);
-    load_tile<T, HD>(Ds, dg, p.do_st, q0, p.Tq, p.hd);
-    if (tid < BQ) {
-      const int gq = q0 + tid;
-      const bool in = gq < p.Tq;
-      row_m[tid] = in ? p.m[stat0 + gq] : 0.f;
-      row_r[tid] = in ? 1.f / p.l[stat0 + gq] : 0.f;
-      row_d[tid] = in ? p.dsum[stat0 + gq] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][8], dp[4][8];
-    tile_dots<HD>(s, Qs, Ks, ty, tx);
-    tile_dots<HD>(dp, Ds, Vs, ty, tx);
-    float rm[4], rr[4], rd[4];
-    bool valid[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty + 16 * i;
-      rm[i] = row_m[r];
-      rr[i] = row_r[r];
-      rd[i] = row_d[r];
-      valid[i] = q0 + r < p.Tq;
-    }
-    grad_tile<T>(p, s, dp, rm, rr, rd, valid, colstate, seed, h, q0, k0, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        Ps[(ty + 16 * i) * LDP + tx + 8 * j] = s[i][j];
-        Ss[(ty + 16 * i) * LDP + tx + 8 * j] = dp[i][j];
-      }
-    __syncthreads();
-
-    // dv[key] += sum_q pd[q, key] do[q, :];  dk[key] += sum_q ds[q, key] q[q, :]
-    const int n_q = min(BQ, p.Tq - q0);
-    for (int r = 0; r < n_q; ++r) {
-      float4 dov[NV], qv[NV];
-#pragma unroll
-      for (int e = 0; e < NV; ++e) {
-        dov[e] = *reinterpret_cast<const float4*>(&Ds[r * LD + e * 32 + tx * 4]);
-        qv[e] = *reinterpret_cast<const float4*>(&Qs[r * LD + e * 32 + tx * 4]);
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float pk = Ps[r * LDP + ty + 16 * i];
-        const float sk = Ss[r * LDP + ty + 16 * i];
-#pragma unroll
-        for (int e = 0; e < NV; ++e) {
-          dv[i][e].x = fmaf(pk, dov[e].x, dv[i][e].x);
-          dv[i][e].y = fmaf(pk, dov[e].y, dv[i][e].y);
-          dv[i][e].z = fmaf(pk, dov[e].z, dv[i][e].z);
-          dv[i][e].w = fmaf(pk, dov[e].w, dv[i][e].w);
-          dk[i][e].x = fmaf(sk, qv[e].x, dk[i][e].x);
-          dk[i][e].y = fmaf(sk, qv[e].y, dk[i][e].y);
-          dk[i][e].z = fmaf(sk, qv[e].z, dk[i][e].z);
-          dk[i][e].w = fmaf(sk, qv[e].w, dk[i][e].w);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gk = k0 + ty + 16 * i;
-    if (gk >= p.Tk) continue;
-    const long long row = ((static_cast<long long>(b) * p.Tk + gk) * p.H + h) * p.hd;
-    T* dkrow = static_cast<T*>(p.dk) + row;
-    T* dvrow = static_cast<T*>(p.dv) + row;
-#pragma unroll
-    for (int e = 0; e < NV; ++e) {
-      const float kvals[4] = {dk[i][e].x, dk[i][e].y, dk[i][e].z, dk[i][e].w};
-      const float vvals[4] = {dv[i][e].x, dv[i][e].y, dv[i][e].z, dv[i][e].w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int d = e * 32 + tx * 4 + x;
-        if (d < p.hd) {
-          store(dkrow + d, kvals[x]);
-          store(dvrow + d, vvals[x]);
-        }
-      }
-    }
-  }
-}
-
-// ------------------------------------------------------------------- dq
-
-template <typename T, int HD>
-__global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(const BwdParams p) {
-  constexpr int LD = HD + 4;
-  constexpr int LDP = BKV + 4;
-  constexpr int NV = HD / 32;
-  extern __shared__ float4 smem_f4[];
-  float* Qs = reinterpret_cast<float*>(smem_f4);
-  float* Ds = Qs + BQ * LD;   // do tile
-  float* Ks = Ds + BQ * LD;
-  float* Vs = Ks + BKV * LD;
-  float* Ss = Vs + BKV * LD;  // ds [q][key]
-  __shared__ int8_t colstate[BKV];
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 7;
-  const int ty = tid >> 3;
-  const int bh = blockIdx.x;
-  const int b = bh / p.H;
-  const int h = bh - b * p.H;
-  const int q0 = blockIdx.y * BQ;
-  const uint32_t seed = case_seed(p.seeds, p.seed, b);
-  const T* qg = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kg = static_cast<const T*>(p.k) + b * p.k_sb + h * p.k_sh;
-  const T* vg = static_cast<const T*>(p.v) + b * p.v_sb + h * p.v_sh;
-  const T* dg = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const long long stat0 = static_cast<long long>(bh) * p.Tq;
-
-  load_tile<T, HD>(Qs, qg, p.q_st, q0, p.Tq, p.hd);
-  load_tile<T, HD>(Ds, dg, p.do_st, q0, p.Tq, p.hd);
-  float rm[4], rr[4], rd[4];
-  bool valid[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int gq = q0 + ty + 16 * i;
-    valid[i] = gq < p.Tq;
-    rm[i] = valid[i] ? p.m[stat0 + gq] : 0.f;
-    rr[i] = valid[i] ? 1.f / p.l[stat0 + gq] : 0.f;
-    rd[i] = valid[i] ? p.dsum[stat0 + gq] : 0.f;
-  }
-
-  // dq of rows ty + 16 i, dims e*32 + tx*4 + 0..3
-  float4 dq[4][NV];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < NV; ++e) dq[i][e] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-  for (int k0 = 0; k0 < p.Tk; k0 += BKV) {
-    __syncthreads();  // the previous tile's dq products are done
-    load_tile<T, HD>(Ks, kg, p.k_st, k0, p.Tk, p.hd);
-    load_tile<T, HD>(Vs, vg, p.v_st, k0, p.Tk, p.hd);
-    load_colstate(p.mask, p.mask_sb, p.Tk, b, k0, colstate);
-    __syncthreads();
-
-    float s[4][8], dp[4][8];
-    tile_dots<HD>(s, Qs, Ks, ty, tx);
-    tile_dots<HD>(dp, Ds, Vs, ty, tx);
-    grad_tile<T>(p, s, dp, rm, rr, rd, valid, colstate, seed, h, q0, k0, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) Ss[(ty + 16 * i) * LDP + tx + 8 * j] = dp[i][j];
-    __syncthreads();
-
-    // dq[row] += sum_key ds[row, key] k[key, :]
-    const int n_k = min(BKV, p.Tk - k0);
-    for (int c = 0; c < n_k; ++c) {
-      float4 kv[NV];
-#pragma unroll
-      for (int e = 0; e < NV; ++e) kv[e] = *reinterpret_cast<const float4*>(&Ks[c * LD + e * 32 + tx * 4]);
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float sc = Ss[(ty + 16 * i) * LDP + c];
-#pragma unroll
-        for (int e = 0; e < NV; ++e) {
-          dq[i][e].x = fmaf(sc, kv[e].x, dq[i][e].x);
-          dq[i][e].y = fmaf(sc, kv[e].y, dq[i][e].y);
-          dq[i][e].z = fmaf(sc, kv[e].z, dq[i][e].z);
-          dq[i][e].w = fmaf(sc, kv[e].w, dq[i][e].w);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (!valid[i]) continue;
-    const int gq = q0 + ty + 16 * i;
-    T* row = static_cast<T*>(p.dq) + ((static_cast<long long>(b) * p.Tq + gq) * p.H + h) * p.hd;
-#pragma unroll
-    for (int e = 0; e < NV; ++e) {
-      const float vals[4] = {dq[i][e].x, dq[i][e].y, dq[i][e].z, dq[i][e].w};
-#pragma unroll
-      for (int x = 0; x < 4; ++x) {
-        const int d = e * 32 + tx * 4 + x;
-        if (d < p.hd) store(row + d, vals[x]);
-      }
-    }
-  }
-}
-
-// --------------------------------------------------------- narrow routes
-
-template <int HD>
-struct Narrow {
-  static constexpr int LANES = NarrowRows<HD>::LANES;  // lanes per long-side row
-  static constexpr int ROWS = NarrowRows<HD>::ROWS;    // long-side rows per block
-  static constexpr int LDR = HD + 4;         // staged row stride (floats)
-  static constexpr int LDS = NARROW + 1;     // staged ds / pd row stride: conflict-free
-  // narrow_k: K, V [NARROW][HD]; q, do rows [ROWS][LDR]; ds, pd [ROWS][LDS]
-  static constexpr size_t k_smem = sizeof(float) * (2 * NARROW * HD + 2 * ROWS * LDR + 2 * ROWS * LDS);
-  // narrow_q: q, do [NARROW][HD]; k rows [ROWS][LDR]; ds [ROWS][LDS]
-  static constexpr size_t q_smem = sizeof(float) * (2 * NARROW * HD + ROWS * LDR + ROWS * LDS);
-};
-
-// p, pd and ds of one (row, key) pair, as grad_tile: a masked key keeps pd
-// (an all-masked row takes the uniform p) and gets ds = 0; keys past Tk and
-// rows past Tq take no part.  Returns ds and pd rounded to T.
+// p, pd and ds of one (row, key) pair: a masked key keeps pd (an all-masked
+// row takes the uniform p) and gets ds = 0; keys past Tk and rows past Tq
+// take no part.  Returns ds and pd rounded to T.
 template <typename T>
 __device__ __forceinline__ void grad_pair(const BwdParams& p, float s, float dp, float rm, float rr,
                                           float rd, bool valid, int8_t st, uint32_t seed, int h,
@@ -447,6 +132,902 @@ template <typename T>
 __device__ __forceinline__ T* out_row(void* out, const BwdParams& p, int b, int h, int rows, int row) {
   return static_cast<T*>(out) + ((static_cast<long long>(b) * rows + row) * p.H + h) * p.hd;
 }
+
+// ------------------------------------------------------- general route
+//
+// Two launches.  dkdv: a block owns GR keys (x1 = k, x2 = v) and walks
+// every q tile (y1 = q, y2 = do), summing dk += ds y1 and dv += pd y2.  dq:
+// a block owns GR q rows (x1 = q, x2 = do) and walks the key tiles (y1 = k,
+// y2 = v), summing dq += ds y1.  s = x1 . y1 and dp = x2 . y2 either way:
+// both launches recompute them (7 products in all where 5 are the least);
+// one launch writing dq partials per key tile would need B*H*(Tk/64)*Tq*hd
+// floats of workspace, 1 GiB at MFMF config1's block 2.
+//
+// Skipping: for a case with at least one valid key, a user-masked key has
+// p = exp(-1e9 - m) / l == 0 exactly in float32 (m is at least that valid
+// key's score), so its pd and ds are 0: it adds nothing to dq and has dk =
+// dv = 0.  Keys are taken in runs of SUB: a dq block streams only the runs
+// holding a valid key (the key tiles are gathered from a list of them, so
+// a tile is 4 such runs), and a dkdv block computes only its owned runs
+// holding one (their rows spread over all its threads), writes zeros for
+// the rest, and returns at once when it owns none.  An all-masked case is
+// dq = 0 outright, and its dkdv takes every run (the uniform p carries dv).
+
+constexpr int STAGES = 2;    // streamed-tile ring depth: tile j+1 copies while tile j computes
+constexpr int GC = 64;       // streamed rows per tile
+constexpr int SUB = 16;      // keys per run
+constexpr int MAXR = 1024;   // key runs listed at a time by a dq block (16384 keys)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x by the SFU (ex2.approx.ftz: about 2 ulp; 0 below 2^-126)
+__device__ __forceinline__ float exp2_fast(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// p, pd and ds of one (row, key) pair on the general route, from factors
+// fixed per row or per key: m2 = m * log2(e) and r = 1/l of the q row (r =
+// 0 for a row past Tq, which zeroes its p), cs = scale for a valid key (0
+// for a masked one or one past Tk: ds = 0), pf = 1 where pd flows (a valid
+// key, or any key below Tk of an all-masked case) and 0 elsewhere.  The
+// exponent s*scale - m is clamped at 0: a valid key's recomputed score can
+// pass the forward's m by a rounding, a masked key's can pass it by far
+// (its p then goes unused through cs = pf = 0), and an all-masked case's m
+// of -1e9 sends every key to 0, the uniform p = 1/l.  sl = scale * log2(e).
+template <typename T>
+__device__ __forceinline__ void grad_fast(const BwdParams& p, float sl, float s, float dp, float m2, float r,
+                                          float dsum, float cs, float pf, uint32_t seed, int h, int gq,
+                                          int gk, float& ds, float& pd) {
+  const float pr = exp2_fast(fminf(fmaf(s, sl, -m2), 0.f)) * r;
+  float pdv = pr * pf, dpv = dp;
+  if (p.dropout) {
+    const bool kp = keep(seed, p.threshold, p.Tq, p.Tk, h, gq, gk);
+    pdv = kp ? pdv * p.keep_scale : 0.f;
+    dpv = kp ? dpv * p.keep_scale : 0.f;
+  }
+  ds = round_to<T>((dpv - dsum) * (pr * cs));
+  pd = round_to<T>(pdv);
+}
+
+// a key's ds factor (cs) and pd factor (pf) for grad_fast
+__device__ __forceinline__ float key_cs(const BwdParams& p, int8_t st) { return st == kValid ? p.scale : 0.f; }
+__device__ __forceinline__ float key_pf(int8_t st, bool has_valid) {
+  return (st == kValid || (!has_valid && st == kMasked)) ? 1.f : 0.f;
+}
+
+// Whether batch element b keeps at least one key: a block-wide scan of its
+// mask row, 128 keys a step, that stops at the first step holding a valid
+// key (the first, for the prefix masks of a padded bag).  Every thread of
+// the block must call it.
+__device__ __forceinline__ bool case_has_valid(const uint8_t* mask, long long mask_sb, int Tk, int b) {
+  if (mask == nullptr) return Tk > 0;
+  for (int k0 = 0; k0 < Tk; k0 += NT) {
+    const int k = k0 + threadIdx.x;
+    if (__syncthreads_or(k < Tk && mask[b * mask_sb + k] != 0)) return true;
+  }
+  return false;
+}
+
+// whether run r (keys 16r..16r+15) of batch element b holds work: a valid
+// key, or (all-masked case) any key below Tk
+__device__ __forceinline__ bool run_has_work(const BwdParams& p, int b, int r, bool has_valid) {
+  bool on = false;
+#pragma unroll
+  for (int e = 0; e < SUB; ++e) {
+    const int8_t st = key_state(p.mask, p.mask_sb, p.Tk, b, r * SUB + e);
+    on |= has_valid ? st == kValid : st != kOutside;
+  }
+  return on;
+}
+
+// The runs r0 .. r0 + n - 1 of batch element b that hold work, in order,
+// into runs[]; returns their count.  Every thread must call it; runs[] is
+// complete for every thread on return.
+__device__ __forceinline__ int list_runs(const BwdParams& p, int b, int r0, int n, bool has_valid, int* runs,
+                                         int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < n; base += NT) {
+    const int i = base + threadIdx.x;
+    const bool on = i < n && run_has_work(p, b, r0 + i, has_valid);
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) wsum[warp] = __popc(bal);
+    __syncthreads();
+    int off = total, add = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      off += w < warp ? wsum[w] : 0;
+      add += wsum[w];
+    }
+    if (on) runs[off + __popc(bal & ((1u << lane) - 1u))] = r0 + i;
+    total += add;
+    __syncthreads();  // wsum is rewritten next round; runs[] is complete
+  }
+  return total;
+}
+
+// rows of a streamed key tile gathered from listed runs: tile row rr is key
+// runs[e0 + rr / SUB] * SUB + rr % SUB, or nothing (zero-filled) past the
+// list's n entries or Tk; 16-byte cp.async copies as copy_tile
+template <typename E, int HD, int LD, int C = GC>
+__device__ __forceinline__ void copy_run_tile(E* dst, const E* src, long long st, const int* runs, int e0,
+                                              int n, int Tk, int hd) {
+  constexpr int PER = 16 / sizeof(E);
+  constexpr int CH = HD / PER;
+  for (int i = threadIdx.x; i < C * CH; i += NT) {
+    const int rr = i / CH, c = i - (i / CH) * CH;
+    const int e = e0 + rr / SUB;
+    const int g = e < n ? runs[e] * SUB + rr % SUB : Tk;
+    const int left = (hd - c * PER) * static_cast<int>(sizeof(E));
+    const int bytes = g < Tk ? max(0, min(16, left)) : 0;
+    const E* from = bytes > 0 ? src + g * st + c * PER : src;
+    cp_async16(dst + rr * LD + c * PER, from, bytes);
+  }
+}
+
+// The streamed columns of tile t, read into registers of threads tid < GC
+// before a tile's products and stored into the ring after them (read after
+// the next barrier): a dq tile's key states (from the run list), a dkdv
+// tile's q rows' m * log2(e), 1/l and dsum.
+template <int C = GC>
+struct KeyCols {
+  int8_t st[STAGES][C];
+};
+template <int C = GC>
+struct RowCols {
+  float m2[STAGES][C], r[STAGES][C], d[STAGES][C];
+};
+
+// zero rows [r0, r0 + n) (clipped to ``rows``) of a [B, rows, H, hd] output
+template <typename T>
+__device__ __forceinline__ void zero_rows(void* out, const BwdParams& p, int b, int h, int rows, int r0,
+                                          int n) {
+  const int n_rows = min(n, rows - r0);
+  for (int i = threadIdx.x; i < n_rows * p.hd; i += NT)
+    store(out_row<T>(out, p, b, h, rows, r0 + i / p.hd) + i % p.hd, 0.f);
+}
+
+// A dkdv block's owned runs with work, as a bit mask over its GR / SUB runs
+// (the owned keys' states into own_state).  Every thread must call it.
+template <int GR>
+__device__ __forceinline__ unsigned own_runs(const BwdParams& p, int b, int k0, bool has_valid,
+                                             int8_t* own_state, unsigned* own_mask) {
+  const int tid = threadIdx.x;
+  if (tid < GR) {  // whole warps: GR is 32 or 64
+    const int8_t st = key_state(p.mask, p.mask_sb, p.Tk, b, k0 + tid);
+    own_state[tid] = st;
+    const unsigned use = __ballot_sync(0xffffffffu, has_valid ? st == kValid : st != kOutside);
+    if ((tid & 31) == 0)
+      own_mask[tid >> 5] = ((use & 0xffffu) != 0u ? 1u : 0u) | ((use >> 16) != 0u ? 2u : 0u);
+  }
+  __syncthreads();
+  unsigned mask = 0;
+#pragma unroll
+  for (int w = 0; w < GR / 32; ++w) mask |= own_mask[w] << (2 * w);
+  return mask;
+}
+
+// the index of the (k+1)-th set bit of a run mask (k < popc(mask))
+__device__ __forceinline__ int nth_run(unsigned mask, int k) {
+  for (int i = 0; i < k; ++i) mask &= mask - 1u;
+  return __ffs(mask) - 1;
+}
+
+// ---------------------------------------------- general route, float32
+//
+// Each owned row belongs to L = HD/16 lanes; a lane keeps a 16-dim slice of
+// the row's two operands (x1, x2) in registers for the whole launch, I rows
+// a thread (GenF32), beside its slices of the row's outputs.  The threads
+// that hold the same row slices (a column group each) take interleaved streamed
+// columns: for each column a thread reads the column's y1 and y2 slices
+// from shared memory (8 float4 loads, the lanes of a warp hitting distinct
+// bank groups), forms s and dp for its rows (a butterfly over the L lanes
+// when L > 1), p, pd and ds (grad_fast), and adds ds * y1 (and pd * y2)
+// into its outputs: 4 * 16 FMAs (dkdv; 3 * 16 dq) per row and column
+// against 8 shared loads a column.  At the end a fixed butterfly adds the
+// column groups' partial sums, so every order is fixed: no atomics, bit-identical
+// launches.  A lane's slice is the float4 groups g with g % L == its lane
+// in the row, so the L lanes of a row read neighbouring 16-byte chunks.  A
+// dkdv block spreads the rows of its runs with work over all 128 threads
+// (fewer rows, more column groups).  True float32 FMAs, no TF32.
+
+template <int HD>
+struct GenF32 {
+  static constexpr int L = HD / 16;               // lanes per owned row
+  // hd 16 (MFMF's): one owned row a thread, 128 registers, 4 blocks an SM,
+  // 128-row streamed tiles (on the H100 the occupancy outweighs the shared
+  // loads each column's y1, y2 then serve one row); wider: two rows a
+  // thread, 2 blocks, 64-row tiles
+  static constexpr int I = HD == 16 ? 1 : 2;      // owned rows per thread
+  static constexpr int MINB = HD == 16 ? 4 : 2;   // blocks per SM the registers allow
+  static constexpr int C = HD == 16 ? 128 : 64;   // streamed rows per tile
+  static constexpr int GR = HD == 128 ? 32 : 64;  // owned rows per block
+  static constexpr int CG = NT * I / (GR * L);    // column groups with every row owned
+  static constexpr int LD = HD == 32 ? 40 : HD + 4;  // tile row stride (floats): the rows
+                                                  // one load reads sit on distinct bank groups
+  static constexpr int TILE = C * LD;
+  static constexpr size_t smem = sizeof(float) * 2 * STAGES * TILE;
+  // every owned row slice has a thread: at least one column group
+  static_assert(NT * I >= GR * L, "GenF32: fewer threads than owned row slices");
+};
+
+// the 16 dims of slice s (float4 groups s, s + L, s + 2L, s + 3L) of a
+// global row, zero at and past hd; the row is 16-byte aligned
+template <int L>
+__device__ __forceinline__ void load_groups(float (&x)[16], const float* row, int s, int hd) {
+#pragma unroll
+  for (int dd = 0; dd < 4; ++dd) {
+    const int d = 4 * (s + L * dd);
+    if (d + 4 <= hd) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(row + d));
+      x[4 * dd] = v.x;
+      x[4 * dd + 1] = v.y;
+      x[4 * dd + 2] = v.z;
+      x[4 * dd + 3] = v.w;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) x[4 * dd + e] = d + e < hd ? row[d + e] : 0.f;
+    }
+  }
+}
+
+// the same slice of a shared tile row (HD wide, zero-filled past hd)
+template <int L>
+__device__ __forceinline__ void smem_groups(float (&x)[16], const float* row, int s) {
+#pragma unroll
+  for (int dd = 0; dd < 4; ++dd) {
+    const float4 v = *reinterpret_cast<const float4*>(row + 4 * (s + L * dd));
+    x[4 * dd] = v.x;
+    x[4 * dd + 1] = v.y;
+    x[4 * dd + 2] = v.z;
+    x[4 * dd + 3] = v.w;
+  }
+}
+
+// the slice's dot: two FMA chains (dims 0-7, 8-15) then their sum
+__device__ __forceinline__ float dot_slice(const float (&a)[16], const float (&b)[16]) {
+  float lo = 0.f, hi = 0.f;
+#pragma unroll
+  for (int d = 0; d < 8; ++d) {
+    lo = fmaf(a[d], b[d], lo);
+    hi = fmaf(a[d + 8], b[d + 8], hi);
+  }
+  return lo + hi;
+}
+
+// the float4 groups dd with dd % cgs == cg of a row slice, dims below hd
+template <int L>
+__device__ __forceinline__ void store_groups(float* row, const float (&x)[16], int s, int cg, int cgs, int hd) {
+#pragma unroll
+  for (int dd = 0; dd < 4; ++dd) {
+    if (dd % cgs != cg) continue;
+    const int d = 4 * (s + L * dd);
+    if (hd % 4 == 0 && d + 4 <= hd) {
+      *reinterpret_cast<float4*>(row + d) = make_float4(x[4 * dd], x[4 * dd + 1], x[4 * dd + 2], x[4 * dd + 3]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (d + e < hd) row[d + e] = x[4 * dd + e];
+    }
+  }
+}
+
+// the partial sums of the cgs column groups (lanes L, 2L, ... apart), added
+// by a fixed butterfly; every lane of the warp takes part
+template <int L, int I>
+__device__ __forceinline__ void sum_groups(float (&acc)[I][16], int cgs) {
+  for (int off = L; off < L * cgs; off <<= 1)
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int d = 0; d < 16; ++d) acc[i][d] += __shfl_xor_sync(0xffffffffu, acc[i][d], off);
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, GenF32<HD>::MINB) attn_bwd_dkdv_f32_kernel(const BwdParams p) {
+  using G = GenF32<HD>;
+  constexpr int L = G::L, I = G::I, GR = G::GR, LD = G::LD, TILE = G::TILE, C = G::C;
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);  // [STAGES][C][LD] q tiles
+  float* Ds = Qs + STAGES * TILE;                 // do tiles
+  __shared__ RowCols<C> cols;
+  __shared__ int8_t own_state[GR];
+  __shared__ unsigned own_mask[GR / 32];
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int k0 = blockIdx.y * GR;
+  const uint32_t seed = case_seed(p.seeds, p.seed, b);
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long stat0 = static_cast<long long>(bh) * p.Tq;
+  const float sl = p.scale * kLog2e;
+  const bool has_valid = case_has_valid(p.mask, p.mask_sb, p.Tk, b);
+  const unsigned on = own_runs<GR>(p, b, k0, has_valid, own_state, own_mask);
+  for (int r = 0; r < GR / SUB; ++r) {
+    if (on & (1u << r)) continue;
+    zero_rows<float>(p.dk, p, b, h, p.Tk, k0 + r * SUB, SUB);
+    zero_rows<float>(p.dv, p, b, h, p.Tk, k0 + r * SUB, SUB);
+  }
+  if (on == 0u) return;
+
+  // the runs with work, padded to a power of two, spread over the block:
+  // n_rows owned rows, cgs column groups (columns cg + cgs * j)
+  const int n_on = __popc(on);
+  const int n_rows = SUB * (n_on == 1 ? 1 : n_on == 2 ? 2 : 4);
+  const int cgs = NT * I / (n_rows * L);
+  const int s = tid % L;
+  const int cg = (tid / L) % cgs;
+  const int rg = tid / (L * cgs);
+
+  auto fill = [&](int t) {  // tile t into its ring slot
+    const int slot = t % STAGES;
+    copy_tile<float, HD, LD, C>(Qs + slot * TILE, qg, p.q_st, t * C, p.Tq, p.hd);
+    copy_tile<float, HD, LD, C>(Ds + slot * TILE, dg, p.do_st, t * C, p.Tq, p.hd);
+  };
+  float nm2 = 0.f, nr = 0.f, nd = 0.f;
+  auto fetch = [&](int t) {
+    const int c = t * C + tid;
+    if (tid < C) {
+      const bool in = c < p.Tq;
+      nm2 = in ? p.m[stat0 + c] * kLog2e : 0.f;
+      nr = in ? 1.f / p.l[stat0 + c] : 0.f;
+      nd = in ? p.dsum[stat0 + c] : 0.f;
+    }
+  };
+  auto put = [&](int t) {
+    if (tid < C) {
+      cols.m2[t % STAGES][tid] = nm2;
+      cols.r[t % STAGES][tid] = nr;
+      cols.d[t % STAGES][tid] = nd;
+    }
+  };
+  const int n_tiles = (p.Tq + C - 1) / C;
+  fill(0);
+  cp_async_commit();
+  fetch(0);
+  put(0);
+
+  // this thread's owned keys: k and v slices, their ds and pd factors
+  // (padding rows past the runs with work stay zero and add nothing)
+  float xa[I][16], xb[I][16], cs[I], pf[I];
+  int krow[I];
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int ci = rg + (n_rows / I) * i;  // compacted row
+    const int run = ci / SUB < n_on ? nth_run(on, ci / SUB) : -1;
+    krow[i] = run < 0 ? -1 : run * SUB + ci % SUB;
+    const int gk = k0 + krow[i];
+#pragma unroll
+    for (int d = 0; d < 16; ++d) xa[i][d] = xb[i][d] = 0.f;
+    cs[i] = pf[i] = 0.f;
+    if (krow[i] >= 0 && gk < p.Tk) {
+      load_groups<L>(xa[i], kg + gk * p.k_st, s, p.hd);
+      load_groups<L>(xb[i], vg + gk * p.v_st, s, p.hd);
+      cs[i] = key_cs(p, own_state[krow[i]]);
+      pf[i] = key_pf(own_state[krow[i]], has_valid);
+    }
+  }
+  float acc1[I][16], acc2[I][16];
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int d = 0; d < 16; ++d) acc1[i][d] = acc2[i][d] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<0>();  // tile t landed for this thread
+    __syncthreads();     // ... for every thread, with its rows' statistics; slot t+1 is free
+    if (t + 1 < n_tiles) {
+      fill(t + 1);
+      fetch(t + 1);
+    }
+    cp_async_commit();
+    const int slot = t % STAGES;
+    const float* Qt = Qs + slot * TILE;
+    const float* Dt = Ds + slot * TILE;
+#pragma unroll 2
+    for (int c = cg; c < C; c += cgs) {
+      float ya[16], yb[16];
+      smem_groups<L>(ya, Qt + c * LD, s);
+      smem_groups<L>(yb, Dt + c * LD, s);
+      const float m2 = cols.m2[slot][c], r = cols.r[slot][c], dsum = cols.d[slot][c];
+#pragma unroll
+      for (int i = 0; i < I; ++i) {
+        const float sv = lane_sum<L>(dot_slice(xa[i], ya));
+        const float dpv = lane_sum<L>(dot_slice(xb[i], yb));
+        float ds, pd;
+        grad_fast<float>(p, sl, sv, dpv, m2, r, dsum, cs[i], pf[i], seed, h, t * C + c, k0 + krow[i], ds, pd);
+#pragma unroll
+        for (int d = 0; d < 16; ++d) {
+          acc1[i][d] = fmaf(ds, ya[d], acc1[i][d]);
+          acc2[i][d] = fmaf(pd, yb[d], acc2[i][d]);
+        }
+      }
+    }
+    if (t + 1 < n_tiles) put(t + 1);
+  }
+  cp_async_wait<0>();  // no copy outlives the block
+
+  sum_groups<L, I>(acc1, cgs);
+  sum_groups<L, I>(acc2, cgs);
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int gk = k0 + krow[i];
+    if (krow[i] < 0 || gk >= p.Tk) continue;
+    store_groups<L>(out_row<float>(p.dk, p, b, h, p.Tk, gk), acc1[i], s, cg, cgs, p.hd);
+    store_groups<L>(out_row<float>(p.dv, p, b, h, p.Tk, gk), acc2[i], s, cg, cgs, p.hd);
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, GenF32<HD>::MINB) attn_bwd_dq_f32_kernel(const BwdParams p) {
+  using G = GenF32<HD>;
+  constexpr int L = G::L, I = G::I, GR = G::GR, CG = G::CG, LD = G::LD, TILE = G::TILE, C = G::C;
+  constexpr int RG = GR / I;  // row groups: rows rg + RG * i
+  extern __shared__ float4 smem_f4[];
+  float* Ks = reinterpret_cast<float*>(smem_f4);  // [STAGES][C][LD] key tiles (4 listed runs)
+  float* Vs = Ks + STAGES * TILE;                 // value tiles
+  __shared__ KeyCols<C> cols;
+  __shared__ int runs[MAXR];
+  __shared__ int wsum[NT / 32];
+
+  const int tid = threadIdx.x;
+  const int s = tid % L;          // this lane's slice of its rows
+  const int cg = (tid / L) % CG;  // its column group: columns cg + CG * j
+  const int rg = tid / (L * CG);  // its row group
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int q0 = blockIdx.y * GR;
+  const uint32_t seed = case_seed(p.seeds, p.seed, b);
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long stat0 = static_cast<long long>(bh) * p.Tq;
+  const float sl = p.scale * kLog2e;
+  if (!case_has_valid(p.mask, p.mask_sb, p.Tk, b)) {  // every ds is 0
+    zero_rows<float>(p.dq, p, b, h, p.Tq, q0, GR);
+    return;
+  }
+
+  // this thread's q rows: q and do slices and statistics (r = 0 past Tq)
+  float xa[I][16], xb[I][16], m2[I], rr[I], rd[I];
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int row = q0 + rg + RG * i;
+#pragma unroll
+    for (int d = 0; d < 16; ++d) xa[i][d] = xb[i][d] = 0.f;
+    m2[i] = rr[i] = rd[i] = 0.f;
+    if (row < p.Tq) {
+      load_groups<L>(xa[i], qg + row * p.q_st, s, p.hd);
+      load_groups<L>(xb[i], dg + row * p.do_st, s, p.hd);
+      m2[i] = p.m[stat0 + row] * kLog2e;
+      rr[i] = 1.f / p.l[stat0 + row];
+      rd[i] = p.dsum[stat0 + row];
+    }
+  }
+  float acc[I][16];
+#pragma unroll
+  for (int i = 0; i < I; ++i)
+#pragma unroll
+    for (int d = 0; d < 16; ++d) acc[i][d] = 0.f;
+
+  const int n_runs = (p.Tk + SUB - 1) / SUB;
+  for (int r0 = 0; r0 < n_runs; r0 += MAXR) {
+    const int n = list_runs(p, b, r0, min(MAXR, n_runs - r0), true, runs, wsum);
+    const int n_tiles = (n + C / SUB - 1) / (C / SUB);
+    auto fill = [&](int t) {  // tile t into its ring slot
+      const int slot = t % STAGES;
+      copy_run_tile<float, HD, LD, C>(Ks + slot * TILE, kg, p.k_st, runs, t * (C / SUB), n, p.Tk, p.hd);
+      copy_run_tile<float, HD, LD, C>(Vs + slot * TILE, vg, p.v_st, runs, t * (C / SUB), n, p.Tk, p.hd);
+    };
+    int8_t nst = kOutside;
+    auto fetch = [&](int t) {
+      if (tid < C) {
+        const int e = t * (C / SUB) + tid / SUB;
+        nst = key_state(p.mask, p.mask_sb, p.Tk, b, e < n ? runs[e] * SUB + tid % SUB : p.Tk);
+      }
+    };
+    if (n_tiles > 0) {
+      fill(0);
+      fetch(0);
+      if (tid < C) cols.st[0][tid] = nst;
+    }
+    cp_async_commit();
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_async_wait<0>();
+      __syncthreads();
+      if (t + 1 < n_tiles) {
+        fill(t + 1);
+        fetch(t + 1);
+      }
+      cp_async_commit();
+      const int slot = t % STAGES;
+      const float* Kt = Ks + slot * TILE;
+      const float* Vt = Vs + slot * TILE;
+      const int n_in = min(C / SUB, n - t * (C / SUB));  // listed runs in this tile
+#pragma unroll 1
+      for (int run = 0; run < n_in; ++run) {
+        const int gk0 = runs[t * (C / SUB) + run] * SUB;
+#pragma unroll 2
+        for (int jq = 0; jq < SUB / CG; ++jq) {
+          const int c = run * SUB + cg + CG * jq;
+          float ya[16], yb[16];
+          smem_groups<L>(ya, Kt + c * LD, s);
+          smem_groups<L>(yb, Vt + c * LD, s);
+          const float cs = key_cs(p, cols.st[slot][c]);
+#pragma unroll
+          for (int i = 0; i < I; ++i) {
+            const float sv = lane_sum<L>(dot_slice(xa[i], ya));
+            const float dpv = lane_sum<L>(dot_slice(xb[i], yb));
+            float ds, pd;
+            grad_fast<float>(p, sl, sv, dpv, m2[i], rr[i], rd[i], cs, 0.f, seed, h, q0 + rg + RG * i,
+                             gk0 + cg + CG * jq, ds, pd);
+#pragma unroll
+            for (int d = 0; d < 16; ++d) acc[i][d] = fmaf(ds, ya[d], acc[i][d]);
+          }
+        }
+      }
+      if (t + 1 < n_tiles && tid < C) cols.st[(t + 1) % STAGES][tid] = nst;
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next list and ring fill start after every read of these
+  }
+
+  sum_groups<L, I>(acc, CG);
+#pragma unroll
+  for (int i = 0; i < I; ++i) {
+    const int row = q0 + rg + RG * i;
+    if (row < p.Tq) store_groups<L>(out_row<float>(p.dq, p, b, h, p.Tq, row), acc[i], s, cg, CG, p.hd);
+  }
+}
+
+// ------------------------------------------------- general route, bf16
+//
+// Tensor cores: each warp owns 16 rows and runs mma.sync m16n8k16 (bf16 in,
+// f32 accumulate) for all five products, with K3's bf16 fragment layouts
+// (attention.cu): the owned x1, x2 tiles and the streamed y1, y2 tiles sit
+// row-major in shared memory (rows padded by 16 bytes), s = x1 y1^T and dp
+// = x2 y2^T take A from ldmatrix.x4 of x and B from ldmatrix.x4 of y; ds
+// (and pd) are rounded to bf16 and re-packed in registers as the A operand
+// of ds y1 (pd y2), whose B comes from ldmatrix.x4.trans of row-major y.
+// The dq launch streams the listed runs as the float32 one does.  A dkdv
+// block spreads its runs with work over its 4 warps: with one such run all
+// four take it, each a quarter of every tile's columns, and add their
+// shares in warp order at the end (two runs: two warps each).
+
+template <int HD>
+constexpr size_t bf16_gen_smem() {
+  return sizeof(__nv_bfloat16) * (2 * 64 + 2 * STAGES * GC) * (HD + 8);
+}
+
+// row r (0: g, 1: g + 8) of a warp's [16, HD] accumulators as bf16, the
+// dims below hd; ``pairs``: rows 4-byte aligned, so bf16 pairs are stored
+template <int NO>
+__device__ __forceinline__ void store_acc_row(__nv_bfloat16* orow, const float (&acc)[NO][4], int r, int t4,
+                                              int hd, bool pairs) {
+#pragma unroll
+  for (int n = 0; n < NO; ++n) {
+    const int d = n * 8 + 2 * t4;
+    const float lo = acc[n][2 * r], hi = acc[n][2 * r + 1];
+    if (pairs && d + 1 < hd) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + d) = __floats2bfloat162_rn(lo, hi);
+    } else {
+      if (d < hd) orow[d] = __float2bfloat16_rn(lo);
+      if (d + 1 < hd) orow[d + 1] = __float2bfloat16_rn(hi);
+    }
+  }
+}
+
+// acc[n] += a (16 x 16 of the warp's rows, columns 16 kk..) times rows
+// 16 kk.. of a row-major [GC][LDH] tile y: B fragments by ldmatrix.x4.trans
+template <int NO, int LDH>
+__device__ __forceinline__ void mma_rows(float (&acc)[NO][4], const uint32_t (&a)[4], const __nv_bfloat16* y,
+                                         int kk, int lane) {
+  const int off = (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDH + (lane >> 4) * 8;
+#pragma unroll
+  for (int np = 0; np < NO / 2; ++np) {
+    uint32_t yb[4];
+    ldmatrix_x4_trans(yb, &y[off + np * 16]);
+    mma_bf16(acc[2 * np], a, yb[0], yb[1]);
+    mma_bf16(acc[2 * np + 1], a, yb[2], yb[3]);
+  }
+}
+
+// the A fragment of columns 16 kk.. from score-shaped accumulators
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4], const float (&c0)[4], const float (&c1)[4]) {
+  a[0] = pack_bf16(c0[0], c0[1]);
+  a[1] = pack_bf16(c0[2], c0[3]);
+  a[2] = pack_bf16(c1[0], c1[1]);
+  a[3] = pack_bf16(c1[2], c1[3]);
+}
+
+// hd 16 (MFMF's) keeps to 128 registers: 4 blocks an SM
+template <int HD, bool DKDV>
+__global__ void __launch_bounds__(NT, HD == 16 ? 4 : 1) attn_bwd_bf16_kernel(const BwdParams p) {
+  using bf16 = __nv_bfloat16;
+  constexpr int GR = 64;       // owned rows per block, 16 a warp
+  constexpr int LDH = HD + 8;  // row stride (bf16)
+  constexpr int KS = HD / 16;  // k-steps of s and dp
+  constexpr int NS = GC / 8;   // n-tiles of a score tile
+  constexpr int NO = HD / 8;   // n-tiles of an output
+  constexpr int TILE = GC * LDH;
+  extern __shared__ float4 smem_f4[];
+  bf16* X1s = reinterpret_cast<bf16*>(smem_f4);  // [GR][LDH] q (dq) or k (dkdv)
+  bf16* X2s = X1s + GR * LDH;                    // do or v
+  bf16* Y1s = X2s + GR * LDH;                    // [STAGES][GC][LDH] k or q
+  bf16* Y2s = Y1s + STAGES * TILE;               // v or do
+  __shared__ KeyCols<> kcols;
+  __shared__ RowCols<> rcols;
+  __shared__ int runs[DKDV ? 1 : MAXR];
+  __shared__ int wsum[NT / 32];
+  __shared__ int8_t own_state[GR];
+  __shared__ unsigned own_mask[GR / 32];
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t4 = lane & 3;
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int o0 = blockIdx.y * GR;
+  const uint32_t seed = case_seed(p.seeds, p.seed, b);
+  const bf16* qg = static_cast<const bf16*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const bf16* kg = static_cast<const bf16*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const bf16* vg = static_cast<const bf16*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const bf16* dg = static_cast<const bf16*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const int n_own = DKDV ? p.Tk : p.Tq;
+  const long long stat0 = static_cast<long long>(bh) * p.Tq;
+  const float sl = p.scale * kLog2e;
+  const bool has_valid = case_has_valid(p.mask, p.mask_sb, p.Tk, b);
+
+  // the warp's 16 owned rows (x0) and its share of each tile's four
+  // 16-column groups (those g with g % wpr == part; wpr is 1, 2 or 4): dq
+  // one warp a 16 rows; dkdv the runs with work spread over the 4 warps,
+  // wpr warps a run
+  int x0 = warp * 16, wpr = 1, part = 0;
+  bool warp_on = true;
+  if constexpr (DKDV) {
+    const unsigned on = own_runs<GR>(p, b, o0, has_valid, own_state, own_mask);
+    for (int r = 0; r < GR / SUB; ++r) {
+      if (on & (1u << r)) continue;
+      zero_rows<bf16>(p.dk, p, b, h, p.Tk, o0 + r * SUB, SUB);
+      zero_rows<bf16>(p.dv, p, b, h, p.Tk, o0 + r * SUB, SUB);
+    }
+    if (on == 0u) return;
+    const int n_on = __popc(on);
+    wpr = n_on == 1 ? 4 : n_on == 2 ? 2 : 1;
+    part = warp % wpr;
+    warp_on = warp / wpr < n_on;
+    x0 = warp_on ? nth_run(on, warp / wpr) * SUB : 0;
+  } else if (!has_valid) {
+    zero_rows<bf16>(p.dq, p, b, h, p.Tq, o0, GR);
+    return;
+  }
+  copy_tile<bf16, HD, LDH>(X1s, DKDV ? kg : qg, DKDV ? p.k_st : p.q_st, o0, n_own, p.hd);
+  copy_tile<bf16, HD, LDH>(X2s, DKDV ? vg : dg, DKDV ? p.v_st : p.do_st, o0, n_own, p.hd);
+
+  const int r0 = x0 + g;  // this thread's owned rows: r0 and r0 + 8
+  // dq: a warp whose rows all lie past Tq only helps load (dkdv: a warp
+  // beyond the runs with work)
+  if constexpr (!DKDV) warp_on = o0 + warp * 16 < n_own;
+  // per owned row: dq its statistics (r = 0 past Tq), dkdv its key's factors
+  float m2[2] = {0.f, 0.f}, rr[2] = {0.f, 0.f}, rd[2] = {0.f, 0.f}, cs[2] = {0.f, 0.f}, pf[2] = {0.f, 0.f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = o0 + r0 + 8 * r;
+    if constexpr (DKDV) {
+      cs[r] = key_cs(p, own_state[r0 + 8 * r]);
+      pf[r] = key_pf(own_state[r0 + 8 * r], has_valid);
+    } else if (row < n_own) {
+      m2[r] = p.m[stat0 + row] * kLog2e;
+      rr[r] = 1.f / p.l[stat0 + row];
+      rd[r] = p.dsum[stat0 + row];
+    }
+  }
+  float acc1[NO][4], acc2[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc1[n][e] = acc2[n][e] = 0.f;
+
+  // the streamed side: dkdv every q tile; dq the listed key runs, 4 a tile
+  const int n_segs = DKDV ? 1 : ((p.Tk + SUB - 1) / SUB + MAXR - 1) / MAXR;
+  for (int seg = 0; seg < n_segs; ++seg) {
+    int n = 0, n_tiles = 0;
+    if constexpr (DKDV) {
+      n_tiles = (p.Tq + GC - 1) / GC;
+    } else {
+      const int n_runs = (p.Tk + SUB - 1) / SUB;
+      n = list_runs(p, b, seg * MAXR, min(MAXR, n_runs - seg * MAXR), true, runs, wsum);
+      n_tiles = (n + GC / SUB - 1) / (GC / SUB);
+    }
+    auto fill = [&](int t) {  // tile t into its ring slot
+      const int slot = t % STAGES;
+      if constexpr (DKDV) {
+        copy_tile<bf16, HD, LDH>(Y1s + slot * TILE, qg, p.q_st, t * GC, p.Tq, p.hd);
+        copy_tile<bf16, HD, LDH>(Y2s + slot * TILE, dg, p.do_st, t * GC, p.Tq, p.hd);
+      } else {
+        copy_run_tile<bf16, HD, LDH>(Y1s + slot * TILE, kg, p.k_st, runs, t * (GC / SUB), n, p.Tk, p.hd);
+        copy_run_tile<bf16, HD, LDH>(Y2s + slot * TILE, vg, p.v_st, runs, t * (GC / SUB), n, p.Tk, p.hd);
+      }
+    };
+    int8_t nst = kOutside;
+    float nm2 = 0.f, nr = 0.f, nd = 0.f;
+    auto fetch = [&](int t) {
+      if (tid >= GC) return;
+      if constexpr (DKDV) {
+        const int c = t * GC + tid;
+        const bool in = c < p.Tq;
+        nm2 = in ? p.m[stat0 + c] * kLog2e : 0.f;
+        nr = in ? 1.f / p.l[stat0 + c] : 0.f;
+        nd = in ? p.dsum[stat0 + c] : 0.f;
+      } else {
+        const int e = t * (GC / SUB) + tid / SUB;
+        nst = key_state(p.mask, p.mask_sb, p.Tk, b, e < n ? runs[e] * SUB + tid % SUB : p.Tk);
+      }
+    };
+    auto put = [&](int t) {
+      if (tid >= GC) return;
+      if constexpr (DKDV) {
+        rcols.m2[t % STAGES][tid] = nm2;
+        rcols.r[t % STAGES][tid] = nr;
+        rcols.d[t % STAGES][tid] = nd;
+      } else {
+        kcols.st[t % STAGES][tid] = nst;
+      }
+    };
+    if (n_tiles > 0) {
+      fill(0);
+      fetch(0);
+      put(0);
+    }
+    cp_async_commit();  // with the owned tiles at the first segment
+
+    for (int t = 0; t < n_tiles; ++t) {
+      cp_async_wait<0>();  // tile t (and the owned tiles) landed
+      __syncthreads();
+      if (t + 1 < n_tiles) {
+        fill(t + 1);
+        fetch(t + 1);
+      }
+      cp_async_commit();
+      const int slot = t % STAGES;
+      const bf16* Y1t = Y1s + slot * TILE;
+      const bf16* Y2t = Y2s + slot * TILE;
+      // 16-column groups of this tile with work (dq: its listed runs)
+      const int n_in = DKDV ? GC / 16 : min(GC / SUB, n - t * (GC / SUB));
+      // one tile's products for the warp's column share: a copy for warps
+      // with every column group (WPR 1: dq, and dkdv blocks whose 4 runs all
+      // hold work), whose loops keep no share test, and one (WPR 0) that
+      // reads the share from wpr
+      auto tile = [&](auto wpr_c) {
+        constexpr int WPR = decltype(wpr_c)::value;
+        const int w = WPR == 1 ? 1 : wpr;
+        float sc[NS][4], dpc[NS][4];
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) sc[nt][e] = dpc[nt][e] = 0.f;
+#pragma unroll
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t xa[4], xb[4];
+          ldmatrix_x4(xa, &X1s[(x0 + (lane & 15)) * LDH + ks * 16 + (lane >> 4) * 8]);
+          ldmatrix_x4(xb, &X2s[(x0 + (lane & 15)) * LDH + ks * 16 + (lane >> 4) * 8]);
+#pragma unroll
+          for (int np = 0; np < NS / 2; ++np) {
+            if (np >= n_in || (w > 1 && (np & (w - 1)) != part)) continue;
+            const int off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDH + ks * 16 + ((lane >> 3) & 1) * 8;
+            uint32_t yb[4];
+            ldmatrix_x4(yb, &Y1t[off]);
+            mma_bf16(sc[2 * np], xa, yb[0], yb[1]);
+            mma_bf16(sc[2 * np + 1], xa, yb[2], yb[3]);
+            ldmatrix_x4(yb, &Y2t[off]);
+            mma_bf16(dpc[2 * np], xb, yb[0], yb[1]);
+            mma_bf16(dpc[2 * np + 1], xb, yb[2], yb[3]);
+          }
+        }
+#pragma unroll
+        for (int nt = 0; nt < NS; ++nt) {
+          if (nt / 2 >= n_in || (w > 1 && ((nt / 2) & (w - 1)) != part)) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int orow = o0 + r0 + 8 * (e >> 1);
+            const int col = nt * 8 + 2 * t4 + (e & 1);
+            float ds, pd;
+            if constexpr (DKDV) {
+              grad_fast<bf16>(p, sl, sc[nt][e], dpc[nt][e], rcols.m2[slot][col], rcols.r[slot][col],
+                              rcols.d[slot][col], cs[e >> 1], pf[e >> 1], seed, h, t * GC + col, orow, ds, pd);
+            } else {
+              const int gk = runs[t * (GC / SUB) + col / SUB] * SUB + col % SUB;
+              grad_fast<bf16>(p, sl, sc[nt][e], dpc[nt][e], m2[e >> 1], rr[e >> 1], rd[e >> 1],
+                              key_cs(p, kcols.st[slot][col]), 0.f, seed, h, orow, gk, ds, pd);
+            }
+            sc[nt][e] = pd;
+            dpc[nt][e] = ds;
+          }
+        }
+        // ds (and pd) of columns 16kk.. as the A fragment, times y1 (y2)
+#pragma unroll
+        for (int kk = 0; kk < GC / 16; ++kk) {
+          if (kk >= n_in || (w > 1 && (kk & (w - 1)) != part)) continue;
+          uint32_t a[4];
+          pack_a(a, dpc[2 * kk], dpc[2 * kk + 1]);
+          mma_rows<NO, LDH>(acc1, a, Y1t, kk, lane);
+          if constexpr (DKDV) {
+            pack_a(a, sc[2 * kk], sc[2 * kk + 1]);
+            mma_rows<NO, LDH>(acc2, a, Y2t, kk, lane);
+          }
+        }
+      };
+      if (warp_on) {
+        if (DKDV && wpr > 1) {
+          tile(std::integral_constant<int, 0>{});
+        } else {
+          tile(std::integral_constant<int, 1>{});
+        }
+      }
+      if (t + 1 < n_tiles) put(t + 1);
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // the next list and ring fill start after every read of these
+  }
+
+  if constexpr (DKDV) {
+    if (wpr > 1) {  // add the run's wpr column shares in warp order, through the ring's memory
+      float* red = reinterpret_cast<float*>(Y1s);  // [4 warps][2 NO 4][32 lanes]
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          red[(warp * 2 * NO * 4 + n * 4 + e) * 32 + lane] = acc1[n][e];
+          red[(warp * 2 * NO * 4 + (NO + n) * 4 + e) * 32 + lane] = acc2[n][e];
+        }
+      __syncthreads();
+      if (part == 0) {
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            for (int w = warp + 1; w < warp + wpr; ++w) {
+              acc1[n][e] += red[(w * 2 * NO * 4 + n * 4 + e) * 32 + lane];
+              acc2[n][e] += red[(w * 2 * NO * 4 + (NO + n) * 4 + e) * 32 + lane];
+            }
+      }
+    }
+    if (!warp_on || part != 0) return;
+  }
+  const bool pairs = (p.hd & 1) == 0;  // output rows 4-byte aligned: store bf16 pairs
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = o0 + r0 + 8 * r;
+    if (row >= n_own) continue;
+    store_acc_row(out_row<bf16>(DKDV ? p.dk : p.dq, p, b, h, n_own, row), acc1, r, t4, p.hd, pairs);
+    if constexpr (DKDV) store_acc_row(out_row<bf16>(p.dv, p, b, h, n_own, row), acc2, r, t4, p.hd, pairs);
+  }
+}
+
+// --------------------------------------------------------- narrow routes
+
+template <int HD>
+struct Narrow {
+  static constexpr int LANES = NarrowRows<HD>::LANES;  // lanes per long-side row
+  static constexpr int ROWS = NarrowRows<HD>::ROWS;    // long-side rows per block
+  static constexpr int LDR = HD + 4;         // staged row stride (floats)
+  static constexpr int LDS = NARROW + 1;     // staged ds / pd row stride: conflict-free
+  // narrow_k: K, V [NARROW][HD]; q, do rows [ROWS][LDR]; ds, pd [ROWS][LDS]
+  static constexpr size_t k_smem = sizeof(float) * (2 * NARROW * HD + 2 * ROWS * LDR + 2 * ROWS * LDS);
+  // narrow_q: q, do [NARROW][HD]; k rows [ROWS][LDR]; ds [ROWS][LDS]
+  static constexpr size_t q_smem = sizeof(float) * (2 * NARROW * HD + ROWS * LDR + ROWS * LDS);
+};
 
 // Tk <= NARROW: one q row per HD/16 lanes; dq in place, dk and dv summed
 // over the block's rows, then over the blocks (attn_bwd_reduce_kernel)
@@ -700,23 +1281,31 @@ int launch_narrow(int route, const BwdParams& p, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int HD>
-int launch_bwd(const BwdParams& p, cudaStream_t stream) {
-  auto dkdv = attn_bwd_dkdv_kernel<T, HD>;
-  auto dq = attn_bwd_dq_kernel<T, HD>;
-  cudaError_t err = allow_smem<attn_bwd_dkdv_kernel<T, HD>>(dkdv_smem<HD>());
+// the general route's two launches, dkdv then dq, ``rows`` owned rows a block
+template <auto Dkdv, auto Dq>
+int launch_pair(int rows, size_t smem, const BwdParams& p, cudaStream_t stream) {
+  cudaError_t err = allow_smem<Dkdv>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = allow_smem<attn_bwd_dq_kernel<T, HD>>(dq_smem<HD>());
+  err = allow_smem<Dq>(smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (p.Tk > 0) {
-    dkdv<<<dim3(p.B * p.H, (p.Tk + BKV - 1) / BKV), NT, dkdv_smem<HD>(), stream>>>(p);
+    Dkdv<<<dim3(p.B * p.H, (p.Tk + rows - 1) / rows), NT, smem, stream>>>(p);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (p.Tq > 0) {
-    dq<<<dim3(p.B * p.H, (p.Tq + BQ - 1) / BQ), NT, dq_smem<HD>(), stream>>>(p);
-  }
+  if (p.Tq > 0) Dq<<<dim3(p.B * p.H, (p.Tq + rows - 1) / rows), NT, smem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int HD>
+int launch_general(const BwdParams& p, cudaStream_t stream) {
+  if constexpr (sizeof(T) == 4) {
+    return launch_pair<attn_bwd_dkdv_f32_kernel<HD>, attn_bwd_dq_f32_kernel<HD>>(GenF32<HD>::GR,
+                                                                                 GenF32<HD>::smem, p, stream);
+  } else {
+    return launch_pair<attn_bwd_bf16_kernel<HD, true>, attn_bwd_bf16_kernel<HD, false>>(
+        64, bf16_gen_smem<HD>(), p, stream);
+  }
 }
 
 template <typename T>
@@ -727,9 +1316,10 @@ int launch_hd(int route, const BwdParams& p, cudaStream_t stream) {
     if (p.hd <= 64) return launch_narrow<T, 64>(route, p, stream);
     return launch_narrow<T, 128>(route, p, stream);
   }
-  if (p.hd <= 32) return launch_bwd<T, 32>(p, stream);
-  if (p.hd <= 64) return launch_bwd<T, 64>(p, stream);
-  return launch_bwd<T, 128>(p, stream);
+  if (p.hd <= 16) return launch_general<T, 16>(p, stream);
+  if (p.hd <= 32) return launch_general<T, 32>(p, stream);
+  if (p.hd <= 64) return launch_general<T, 64>(p, stream);
+  return launch_general<T, 128>(p, stream);
 }
 
 }  // namespace

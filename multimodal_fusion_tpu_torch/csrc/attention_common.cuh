@@ -1,7 +1,8 @@
 // Pieces shared by the fused-attention forward (attention.cu, K3) and
 // backward (attention_bwd.cu, K4): tile sizes, the routes, the mask
-// constants, the per-column key state, the hash dropout mask and the
-// 16-dim row-slice loads of the narrow routes.
+// constants, the per-column key state, the hash dropout mask, the 16-dim
+// row-slice loads of the narrow routes, and the general routes' 16-byte
+// cp.async tile copies and bf16 ldmatrix / mma.sync helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -184,6 +185,71 @@ __device__ __forceinline__ void store_slice(__nv_bfloat16* row, const float (&x)
         if (d + e < hd) row[d + e] = __float2bfloat16_rn(x[8 * c + e]);
     }
   }
+}
+
+// ------------------------------------------------------- async copies
+
+// 16-byte global -> shared copy of which the first ``bytes`` (0..16) are
+// read and the rest zero-filled; both addresses 16-byte aligned
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// rows [r0, r0 + ROWS) of a [T, hd] slice (token stride st, elements of T)
+// into a shared tile of row stride LD elements, HD columns, zero past T and
+// hd, as 16-byte cp.async copies
+template <typename E, int HD, int LD, int ROWS = 64>
+__device__ __forceinline__ void copy_tile(E* dst, const E* src, long long st, int r0, int n_rows,
+                                          int hd) {
+  constexpr int PER = 16 / sizeof(E);  // elements per 16-byte chunk
+  constexpr int CH = HD / PER;         // chunks per row
+  for (int i = threadIdx.x; i < ROWS * CH; i += NT) {
+    const int r = i / CH, c = i - (i / CH) * CH;
+    const int g = r0 + r;
+    const int left = (hd - c * PER) * static_cast<int>(sizeof(E));
+    const int bytes = g < n_rows ? max(0, min(16, left)) : 0;
+    const E* from = bytes > 0 ? src + g * st + c * PER : src;
+    cp_async16(dst + r * LD + c * PER, from, bytes);
+  }
+}
+
+// ------------------------------------------------ bf16 tensor-core pieces
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// four 8x8 b16 matrices; lanes 8i..8i+7 give the row addresses of matrix i
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* ptr) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* ptr) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 inputs, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // Sum over the LANES lanes of one long-side row (consecutive lanes of a

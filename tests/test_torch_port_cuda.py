@@ -438,6 +438,72 @@ def test_attention_bwd_kernel_all_masked_and_per_case_seeds(cuda):
     assert torch.equal(shared[2][0], got[2][0]) and not torch.equal(shared[2][1], got[2][1])
 
 
+def _config1_mask(rng, kind, b, cuda):
+    """mfmf_config1's key masks for ``b`` cases: ``wsi`` keeps a prefix of
+    2048-4096 of a 4096 bag, ``buckets`` 9-16 of each of 8 markers' 64-row
+    buckets; case 0 keeps no key."""
+    if kind == "wsi":
+        mask = np.arange(4096)[None] < rng.integers(2048, 4097, (b, 1))
+    else:
+        mask = np.concatenate([np.arange(64)[None] < rng.integers(9, 17, (b, 1)) for _ in range(8)], axis=1)
+    mask[0] = False
+    return torch.as_tensor(mask, device=cuda)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("drop", [False, True], ids=["no_dropout", "per_case_seeds"])
+@pytest.mark.parametrize("kind,tq,tk", [("wsi", 512, 4096), ("buckets", 4096, 512)],
+                         ids=["block2_wsi", "block3_buckets"])
+def test_attention_bwd_general_hd16_on_config1_masks(cuda, kind, tq, tk, drop, dtype):
+    """K4's general route at hd 16 (unpadded) at mfmf_config1's blocks 2 and
+    3 on 6 cases: ragged WSI masks or bucket masks (whose runs of 16 keys
+    without a valid key the kernel skips), case 0 all masked (dq = dk = 0, dv
+    through the uniform p), with and without dropout 0.1 under per-case
+    seeds; against the plain version, two launches bit-identical."""
+    rng = np.random.default_rng(tq + 3 * drop)
+    b, h, hd = 6, 8, 16
+    mask = _config1_mask(rng, kind, b, cuda)
+    dropout = {}
+    if drop:
+        seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=cuda)
+        dropout = dict(dropout_rate=0.1, seed=seeds)
+    args = _bwd_inputs(rng, b, tq, tk, h, hd, dtype, cuda, mask, **dropout)
+    assert _route(tq, tk, hd) == "general"
+    before = attention_bwd.route_launches["general"]
+    got = attention_bwd(*args, mask, **dropout)
+    again = attention_bwd(*args, mask, **dropout)
+    want = plain_fused_attention_bwd(*args, mask, **dropout)
+    torch.cuda.synchronize()
+    assert attention_bwd.route_launches["general"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+    bar = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert _rel_l2(g, w) <= bar, (name, _rel_l2(g, w))
+    assert not got[0][0].any() and not got[1][0].any() and got[2][0].abs().max() > 0
+    # a masked key of a case that keeps one has dk = dv = 0 exactly
+    masked = ~mask[1:]
+    assert not got[1][1:][masked].any() and not got[2][1:][masked].any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind,tq,tk", [("wsi", 512, 4096), ("buckets", 4096, 512)],
+                         ids=["block2_wsi", "block3_buckets"])
+def test_attention_general_hd16_on_config1_masks(cuda, kind, tq, tk, dtype):
+    """K3's general route at hd 16 (its new unpadded instantiation) at
+    mfmf_config1's blocks 2 and 3 on 6 cases, case 0 all masked, against
+    the plain version; two launches bit-identical."""
+    rng = np.random.default_rng(tk)
+    mask = _config1_mask(rng, kind, 6, cuda)
+    q, k, v = _attn_inputs(rng, 6, tq, tk, 8, 16, dtype, cuda)
+    before = attention_fwd.route_launches["general"]
+    got = attention_fwd(q, k, v, mask)
+    again = attention_fwd(q, k, v, mask)
+    assert attention_fwd.route_launches["general"] == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _check_attn(got, plain_fused_attention(q, k, v, mask), (q, k, v), mask)
+
+
 def test_gradients_reach_projections_through_auto(cuda):
     """attention(impl='auto') on the card goes through K3 forward and K4
     backward, and the q/k/v projection weights get the gradients a CPU run

@@ -106,9 +106,25 @@ def _jax_window_grads(model, window):
     return np.asarray(logits), np.asarray(losses), params, grads
 
 
-@pytest.mark.parametrize("impl", ["auto", "pallas_interpret", "xla"])
-def test_mfmf_forward_and_gradients_match_jax(impl):
+# the fusion orders of experiments/2.related_works/mfmf_config{0,1,2}.sh
+# (config0's is the default); config1's blocks 2 and 3 run both sides long,
+# and its block 3 takes the TMA buckets' mask as the result's key mask
+FUSION_ORDERS = {
+    "config0": None,
+    "config1": [{"q": "tma", "kv": "other"}, {"q": "result", "kv": "wsi"},
+                {"q": "reconstruct", "kv": "result"}],
+    "config2": [{"q": "other", "kv": "tma"}, {"q": "result", "kv": "reconstruct"},
+                {"q": "result", "kv": "wsi"}],
+}
+# config0 keeps its cases' ids (the impl alone); the other orders add cases
+ORDER_CASES = [pytest.param(impl, order, id=impl if order == "config0" else f"{impl}-{order}")
+               for order in FUSION_ORDERS for impl in ("auto", "pallas_interpret", "xla")]
+
+
+@pytest.mark.parametrize("impl,order", ORDER_CASES)
+def test_mfmf_forward_and_gradients_match_jax(impl, order):
     jc = _jax_config()
+    jc.fusion_blocks_sequence = FUSION_ORDERS[order]
     jmodel = JaxFactory.create_model(jc, seed=0)
     raws, labels = _raw_cases(0)
     window = jax_make_window(raws, labels)
@@ -116,6 +132,8 @@ def test_mfmf_forward_and_gradients_match_jax(impl):
 
     model = ModelFactory.create_model(_port_config(jc, impl), seed=0, device="cpu")
     model.load_state_dict(tmfmf.mfmf_params_from_jax(_pure(params)), strict=True)
+    want_blocks = [f"{b['q']}:{b['kv']}" for b in FUSION_ORDERS[order] or tmfmf.DEFAULT_FUSION_SEQUENCE]
+    assert list(model.attention_blocks) == want_blocks
     case, label = _torch_window(window)
     res = model(case, train=True)
     losses = model.loss_fn(res["logits"], label, res)
