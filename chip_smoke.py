@@ -85,14 +85,24 @@ port's paths through their entry points:
   converted back by ``import_results_dir``, ``predict`` over both; the
   robustness sweep; and ``utils/mfu.measure_device`` on the flagship's
   eval forward, ViT-L/16 and K1, whose bounds the kernels line also
-  takes from ``utils/mfu.chip_peaks``.
+  takes from ``utils/mfu.chip_peaks``;
+- the experiment matrix (``experiments/matrix.py``): six of its smoke
+  representatives (clam, clam_mlp, the CLIP detach variant, deep
+  supervision, mfmf_config1 and svd_pool; phase 19 runs the seventh)
+  through the training CLI's ``run`` at the matrix's own widths over one
+  fold of the 160 cases, each fold checkpoint evaluated on the CPU against
+  the card; and the demo's models (``multimodal_fusion_tpu_torch/demo``)
+  on the card against the CPU.
 
 Every phase must pass: the script exits non-zero otherwise, and also when
 no CUDA device is present (it never falls back to the CPU).
 
-The line before the last is a JSON object with one entry per kernel
-(launches on the main path, error against the plain version, times, bound);
-the last line is ``{"ok": true, "device": {...}}``.  Times come from CUDA
+Each line a phase prints ends with the seconds since the phase began, and
+each phase ends with its wall; after the last phase a line gives the sum of
+the walls and its share of the driver's 1200 s limit.  Then come a JSON
+object with one entry per kernel (launches on the main path, error against
+the plain version, times, bound), the card's name and power limit, and as
+the last line ``{"ok": true, "device": {...}}``.  Times come from CUDA
 events and stand beside the card's name and power limit.
 """
 
@@ -114,6 +124,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+TIME_LIMIT_S = 1200  # the whole run, the kernels' build included, must end within it
 
 # the benchmark's build configuration (bench.py)
 N_FILES, N_PATCHES, N_TMA, DIM = 8, 4096, 32, 1024
@@ -154,7 +165,7 @@ FLAG_DIM, FLAG_WINDOW = 128, 16
 # bench.py's inference cell (bench.py:231-251): windows of 8 cases x 4096
 # WSI x 32 TMA (cd3) patches x 1024 and clinical values, held on the card
 INF_BATCH, INF_WSI, INF_TMA, INF_BATCHES, INF_WINDOWS = 8, 4096, 32, 32, 5
-SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64)  # a 160-case request took ~27 s of the time limit
+SERVE_FOLDS, SERVE_REQUESTS = 5, (16, 64, 160)
 # bench.py's training cell (run_training_ours, bench.py:344-412): 16 steps
 # of 8 cases at the inference cell's shape
 BENCH_TRAIN_STEPS = 16
@@ -174,6 +185,15 @@ VAE_BATCH = 1024
 # of 1024 rows, bf16 upload and sampled statistics at 36864 patches, card vs
 # CPU at 6000; the batched build's bucketed slides; the dense graph
 BIG_N, STRIPE, MID_N, CPU_N, BUCKET_FILES, DENSE_N = 65536, 1024, 36864, 6000, 16, 2048
+
+# the experiment matrix (experiments/matrix.py): six of
+# tests/test_experiment_matrix.py's SMOKE representatives through the training
+# CLI at the matrix's widths (phase 19 runs the seventh,
+# combined_svd_gate_random_clam)
+MATRIX_RUNS = ["0.clam/clam/tma_wsi_clam", "0.clam/clam_mlp/all_clam_mlp",
+               "0.clam/clip_gate_random_clam_detach/clip_random_clam_detach",
+               "1.deep_supervise/random/ds_svd_random", "2.related_works/mfmf_config1",
+               "3.additional_exp/svd_pool_max"]
 
 # the parallel layer: gangs of ranks on this one card (gloo) beside an NCCL
 # world of 1 in this process; one training window of 16 cases with WSI bags
@@ -199,8 +219,13 @@ class Smoke:
         self.card = _card_line()
         self.failures: list = []
         self.kernels: dict = {}
+        self.walls: dict = {}  # phase name -> wall in s
+        self.t_phase = None  # start of the running phase
 
     def log(self, msg: str) -> None:
+        """Print ``msg``; inside a phase, with the seconds since it began."""
+        if self.t_phase is not None:
+            msg = f"{msg}  [+{time.perf_counter() - self.t_phase:.1f} s]"
         print(msg, flush=True)
 
     def timed(self, msg: str) -> None:
@@ -275,7 +300,7 @@ class Smoke:
 
     def phase(self, name: str, fn) -> None:
         self.log(f"== {name}")
-        t0 = time.perf_counter()
+        t0 = self.t_phase = time.perf_counter()
         try:
             fn()
         except Exception:  # a failed phase fails the run; later phases still report
@@ -283,7 +308,16 @@ class Smoke:
             self.log(tb)
             print(f"{name}:\n{tb}", file=sys.stderr, flush=True)
             self.failures.append(f"{name}: exception")
-        self.log(f"   ({name}: {time.perf_counter() - t0:.1f} s wall)")
+        self.t_phase = None
+        self.walls[name] = time.perf_counter() - t0
+        self.log(f"   ({name}: {self.walls[name]:.1f} s wall)")
+
+    def walls_line(self) -> str:
+        total = sum(self.walls.values())
+        top = sorted(self.walls.items(), key=lambda x: x[1], reverse=True)[:6]
+        return (f"phase walls: {total:.1f} s over {len(self.walls)} phases = "
+                f"{100 * total / TIME_LIMIT_S:.1f}% of the {TIME_LIMIT_S} s limit; longest: "
+                + ", ".join(f"{n.split('.')[0]} {w:.1f} s" for n, w in top))
 
 
 def _ptxas_summary(log):
@@ -594,17 +628,21 @@ def _hdf5_files():
         shutil.rmtree(td, ignore_errors=True)
 
 
-def _mfmf_cases(rng, markers, tabular_dims):
+def _mfmf_cases(rng, markers, tabular_dims, gen):
     """``MFMF_CASES`` raw cases as ``MultimodalDataset.get_case`` returns
     them: a WSI bag of 2048-4096 patches x 1024 and its reconstruction
     (the bag plus small noise), each marker's 9-16 TMA patches, and each
-    tabular group's [1, D] values with a 0/1 mask; balanced labels."""
+    tabular group's [1, D] values with a 0/1 mask; balanced labels.  The
+    bags (4 GB in all) are drawn on the card from the CUDA generator
+    ``gen`` and copied to host memory; the rest from ``rng``."""
+    import torch
+
     raws = []
     for _ in range(MFMF_CASES):
         n = int(rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1))
-        wsi = rng.standard_normal((n, DIM), dtype=np.float32)
-        raw = {"wsi=features": wsi,
-               "wsi=reconstructed_features": wsi + 0.05 * rng.standard_normal((n, DIM), dtype=np.float32)}
+        wsi = torch.randn((n, DIM), generator=gen, device=gen.device)
+        recon = wsi + 0.05 * torch.randn((n, DIM), generator=gen, device=gen.device)
+        raw = {"wsi=features": wsi.cpu().numpy(), "wsi=reconstructed_features": recon.cpu().numpy()}
         for mk in markers:
             n_tma = int(rng.integers(MFMF_TMA[0], MFMF_TMA[1] + 1))
             raw[f"tma={mk}=features"] = rng.standard_normal((n_tma, DIM), dtype=np.float32)
@@ -613,6 +651,29 @@ def _mfmf_cases(rng, markers, tabular_dims):
             raw[f"{group}=mask"] = (rng.random((1, dim)) > 0.2).astype(np.float32)
         raws.append(raw)
     return raws, rng.permutation(np.arange(MFMF_CASES) % 2)
+
+
+def _clustered_slides_on_card(sizes, gen, n_tma=N_TMA, dim=DIM, n_blobs=12):
+    """``io.fixtures.clustered_slide``'s slides (its blob scales), one of
+    each size in ``sizes``, drawn on the card from the CUDA generator
+    ``gen`` and copied to host memory: (features [N, D], positions [N, 2],
+    tma [T, D]) float32."""
+    import torch
+
+    def normal(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device)
+
+    slides = []
+    for n in sizes:
+        centers = normal(n_blobs, dim) * np.sqrt(1.75 / dim)
+        pos_centers = 4.0 * torch.rand((n_blobs, 2), generator=gen, device=gen.device)
+        assign = torch.randint(0, n_blobs, (n,), generator=gen, device=gen.device)
+        feats = centers[assign] + normal(n, dim) * np.sqrt(0.25 / dim)
+        pos = pos_centers[assign] + 0.3 * normal(n, 2)
+        tma_assign = torch.randint(0, n_blobs, (n_tma,), generator=gen, device=gen.device)
+        tma = centers[tma_assign] + normal(n_tma, dim) * np.sqrt(0.25 / dim)
+        slides.append(tuple(t.cpu().numpy() for t in (feats, pos, tma)))
+    return slides
 
 
 def _vit_dense_flops(n_images, dim=1024, depth=VIT_DEPTH, tokens=VIT_TOKENS, patch=16):
@@ -1781,8 +1842,10 @@ def main() -> int:
     def mfmf_raw_cases():
         if not drawn:
             t0 = time.perf_counter()
-            drawn["cases"] = _mfmf_cases(np.random.default_rng(12), TMA_MARKERS, TABULAR_DIMS)
-            s.log(f"  {MFMF_CASES} in-memory cases drawn in {time.perf_counter() - t0:.1f} s (host)")
+            drawn["cases"] = _mfmf_cases(np.random.default_rng(12), TMA_MARKERS, TABULAR_DIMS,
+                                         torch.Generator(device=dev).manual_seed(12))
+            s.log(f"  {MFMF_CASES} in-memory cases drawn in {time.perf_counter() - t0:.1f} s (bags on the card, "
+                  "copied to host memory)")
         return drawn["cases"]
 
     def mfmf_configs(order, name):
@@ -1831,8 +1894,10 @@ def main() -> int:
             wall = time.perf_counter() - t0
             add_main_path_counts()
             s.timed(f"train_fold, device_data={device_data}: {MFMF_EPOCHS} epochs of "
-                    f"{sizes[0]} cases + evaluation in {wall:.2f} s"
-                    + (" (the model's first CUDA use included)" if device_data else ""))
+                    f"{sizes[0]} cases + evaluation in {wall:.2f} s, "
+                    f"{MFMF_EPOCHS * sizes[0] / wall:.1f} training cases/s end to end"
+                    + (" (the model's first CUDA use included)" if device_data else
+                       " (each window read, padded and uploaded on the host)"))
             s.check(attention_bwd.launches == 3 * n_train,
                     f"device_data={device_data}: K4 launched 3 times per train window "
                     f"({attention_bwd.launches} == 3 x {n_train})")
@@ -1939,17 +2004,6 @@ def main() -> int:
                 f"cases/s over {MFMF_TIMED_WINDOWS} windows of {MFMF_BATCH} (min {rates[0]:.1f}, "
                 f"max {rates[-1]:.1f}); peak device memory "
                 f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB with the tables")
-        # the host path: each window read, padded and uploaded (prefetched
-        # on a thread, as train_fold runs it), 3 windows end to end
-        order = np.concatenate([split.train_idx, split.train_idx[:MFMF_BATCH]])
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _, w in tr._windows_prefetched(ds, order, MFMF_BATCH):
-            tr._train_step(model, opt, tr._to_device(w), gen)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        s.timed(f"MFMF training, host path: {len(order) / wall:.1f} cases/s over "
-                f"{len(order) // MFMF_BATCH} windows of {MFMF_BATCH} ({wall:.3f} s)")
         # evaluation on the device path: all 160 cases in windows of 16
         walls = []
         for _ in range(3):
@@ -2222,14 +2276,20 @@ def main() -> int:
                 s.timed(f"POST /predict, {n} cases x {SERVE_FOLDS} folds: {wall:.3f} s, "
                         f"{n / wall:.1f} cases/s")
                 responses[n] = res["cases"]
+            # the ensemble of evaluate_fold run directly, once over the largest
+            # request's cases: evaluate_fold scores windows of 16 cases in
+            # order, so a smaller request's cases are the same windows, and
+            # each request is held against its own cases' rows
             tr = SurvivalTrainer(Configs(ec, mc), rd, device=dev)
+            csv_path = flag["dir"] / "request_all.csv"
+            write_csv(csv_path, rows[:max(SERVE_REQUESTS)])
+            ds = results_io.build_dataset(tr.configs, csv_path, rd)
+            split = FoldSplit(empty_idx, empty_idx, np.arange(len(ds)))
+            per_fold = {f: tr.evaluate_fold(ds, split, f) for f in folds}
+            flag["fold_0_eval"] = per_fold[0]  # phase 40 holds the artifact to it
+            ensemble = ensemble_rows(per_fold, folds, ds.case_to_patient)
             for n, got in responses.items():
-                csv_path = flag["dir"] / f"request_{n}.csv"
-                write_csv(csv_path, rows[:n])
-                ds = results_io.build_dataset(tr.configs, csv_path, rd)
-                split = FoldSplit(empty_idx, empty_idx, np.arange(len(ds)))
-                per_fold = {f: tr.evaluate_fold(ds, split, f) for f in folds}
-                same, err = max_diff(got, ensemble_rows(per_fold, folds, ds.case_to_patient))
+                same, err = max_diff(got, ensemble[:n])
                 s.check(same and err <= 1e-6, f"{n}-case response vs the ensemble of evaluate_fold "
                                               f"run directly on the card: max abs diff {err:.2e} <= 1e-6")
             status, err = request("POST", "/predict", b"{not json")
@@ -3026,10 +3086,11 @@ def main() -> int:
 
         raws, labels = mfmf_raw_cases()  # labels and tabular groups
         rng = np.random.default_rng(22)
+        sizes = [int(rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1)) for _ in range(MFMF_CASES)]
         t0 = time.perf_counter()
-        slides = [clustered_slide(rng, int(rng.integers(MFMF_WSI[0], MFMF_WSI[1] + 1)), N_TMA, DIM)
-                  for _ in range(MFMF_CASES)]
-        s.log(f"  {MFMF_CASES} clustered-blob slides drawn in {time.perf_counter() - t0:.1f} s (host)")
+        slides = _clustered_slides_on_card(sizes, torch.Generator(device=dev).manual_seed(22))
+        s.log(f"  {MFMF_CASES} clustered-blob slides drawn in {time.perf_counter() - t0:.1f} s (on the "
+              "card, copied to host memory)")
         reset_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3430,12 +3491,12 @@ def main() -> int:
         pre["volume_step"] = lambda: vol._step(*next(vol_stream),
                                                torch.Generator(device=dev).manual_seed(0))
         # the host collate decompresses each of a batch's 8192 NPZ rows' cores
-        # (~2.7-4.3 s a step): one window of 2 steps, so that the script keeps
-        # inside its time limit
+        # (~2.7-4.3 s a step, which the collate dominates): one window of 2
+        # steps and no warm-up, so that the script keeps inside its time limit
         off = alignment_trainer(dev, "volume")
         timed_steps("volume step, device_data off", off,
                     off.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), False),
-                    windows=1, steps=2, warmup=1)
+                    windows=1, steps=2, warmup=0)
         r1 = alignment_trainer(dev, "rank1", "gram")
         r1_stream = r1.batch_stream(views["train"], ALIGN_BATCH, np.random.default_rng(42), True)
         pre["rank1_ms"] = timed_steps("rank1 'gram' step (Jacobi eigensolver), device_data on", r1,
@@ -3963,8 +4024,11 @@ def main() -> int:
     def batched_phase():
         """Main path: process_dataset with file_batch=8 against file_batch=1
         on phase 4's slides, windows in turns in this one run; then with
-        bucket_patches on 16 slides of 2048-4096 patches (phase 22's
-        draw).  Files of each side are compared slide by slide."""
+        bucket_patches on 16 slides of 2048-4096 patches
+        (``clustered_slide``, seed 22).  Files of each side are compared
+        slide by slide."""
+        import csv
+
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -3990,10 +4054,10 @@ def main() -> int:
                 ("2048-4096 patches, bucket_patches 4096", td / "bucket", td / "bucket" / "dataset.csv",
                  {"bucket_patches": 4096}),
             ):
-                def run(fb):
+                def run(fb, csv_=csv_p):
                     torch.cuda.synchronize()
                     t0 = time.perf_counter()
-                    stats, summary = build.process_dataset(csv_p, root, **params, save_similarity=False,
+                    stats, summary = build.process_dataset(csv_, root, **params, save_similarity=False,
                                                            file_batch=fb, device=dev, **extra)
                     wall = time.perf_counter() - t0
                     s.check(not any("error" in st for st in stats), f"{label}, file_batch={fb}: no errors")
@@ -4015,13 +4079,17 @@ def main() -> int:
                 s.timed(f"{label}: file_batch=1 {pps[1]:.1f} patches/s, file_batch=8 {pps[8]:.1f} "
                         f"patches/s (medians of {len(walls[1])} windows in turns; walls "
                         f"{[round(w, 4) for w in walls[1]]} / {[round(w, 4) for w in walls[8]]} s)")
-                for fb in (1, 8) if not extra else ():
+                # launches a slide under the CPU profiler, whose cost is per op:
+                # file_batch=1 over the first slide alone, 8 over a chunk of 8
+                with open(csv_p, newline="") as f:
+                    write_csv(root / "first.csv", list(csv.DictReader(f))[:1])
+                for fb, csv_, n in ((1, root / "first.csv", 1), (8, csv_p, files)) if not extra else ():
                     with profile(activities=[ProfilerActivity.CPU]) as prof:
-                        run(fb)
+                        run(fb, csv_)
                     launches = sum(e.count for e in prof.key_averages()
                                    if e.device_type == DeviceType.CPU and e.key == "cudaLaunchKernel")
-                    s.timed(f"{label}, file_batch={fb}: {launches / files:.0f} cudaLaunchKernel a slide, "
-                            f"K1 1 a slide")
+                    s.timed(f"{label}, file_batch={fb}: {launches / n:.0f} cudaLaunchKernel a slide over "
+                            f"{n} slide{'s' if n > 1 else ''}, K1 1 a slide")
                 worst_ari, same_stats, same_super = 1.0, True, True
                 for case, a in outs[1].items():
                     b = outs[8][case]
@@ -4254,17 +4322,64 @@ def main() -> int:
                 f"turns: mesh (NCCL world of 1) {pps['mesh']:.1f} patches/s, unsharded "
                 f"{pps['unsharded']:.1f} patches/s (walls {walls})")
 
+    mesh_gang = {}  # phases 36-38's gang: its calls' slices, then its outcome
+
+    def mesh_training_steps():
+        """Phase 38's steps: (label, dryrun function, kwargs)."""
+        bars = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
+        exact = flag_config()
+        exact.dropout, exact.enable_random_loss = 0.0, False
+        mf = dataclasses.replace(exact, model_type="mfmf", dropout=0.0, output_dim=MFMF_DIM,
+                                 fusion_blocks_sequence=DEFAULT_FUSION_SEQUENCE)
+        mf.extra = dict(exact.extra, attention_num_heads=MFMF_HEADS)
+        win = dict(G=MESH_WINDOW, wsi=MESH_WSI, tma=16)
+        return [
+            ("flagship", "check_survival_step", dict(config=exact, tol=bars, **win)),
+            ("flagship, dropout 0.25", "check_survival_step", dict(config=flag_config(), **win)),
+            ("MFMF", "check_survival_step", dict(config=mf, tol=bars, **win)),
+            ("VAE", "check_vae_step", dict(B=VAE_BATCH, input_dim=DIM, hidden=(512, 256),
+                                           latent=128)),
+            ("alignment (volume)", "check_alignment_step",
+             dict(B=ALIGN_BATCH, markers=list(TMA_MARKERS), feature_dim=DIM, num_layers=2,
+                  loss_type="volume", lambda2=0.0)),
+        ]
+
+    def shared_gang(phase):
+        """Phase ``phase``'s calls' results in each rank of one gang of 2
+        ranks on the card (gloo) that runs the calls of phases 36, 37 and
+        38 in turn: each rank starts once for the three."""
+        if "outcome" not in mesh_gang:
+            groups = {
+                36: [(f"{DRY}:build_clustered", dict(n_patches=n, slide_seed=seed, n_tma=N_TMA, dim=DIM,
+                                                      save_similarity=False, **params), {"data": 2})
+                     for n, seed in ((build.FULL_STATS_MAX_N, 5), (BIG_N, 28))],
+                37: [(f"{DRY}:check_extraction", dict(compute_dtype=dtype, n_patches=2 * VIT_BATCH,
+                                                       patch=256, batch_size=VIT_BATCH), {"data": 2})
+                     for dtype in ("float32", "bfloat16")],
+                38: [(f"{DRY}:{fn}", kw, {"data": 2}) for _, fn, kw in mesh_training_steps()],
+            }
+            calls, slices = [], {}
+            for p_, group in groups.items():
+                slices[p_] = slice(len(calls), len(calls) + len(group))
+                calls += group
+            try:
+                results, wall = gang(2, calls)
+            except Exception as exc:
+                mesh_gang["outcome"] = exc
+                raise
+            mesh_gang.update(outcome=results, slices=slices)
+            s.timed(f"one gang of 2 ranks on one card for phases 36-38 ({len(calls)} calls): {wall:.1f} "
+                    "s wall (process start-up included; an overhead, not a speed-up: the ranks share "
+                    "the card)")
+        if isinstance(mesh_gang["outcome"], Exception):
+            raise RuntimeError("the gang of phases 36-38 failed") from mesh_gang["outcome"]
+        return [res[mesh_gang["slices"][phase]] for res in mesh_gang["outcome"]]
+
     def mesh_large_phase():
         """2 ranks sharing the card (gloo): phase 5's 32768-patch slide in
         full statistics (a [16384, 32768] K1 stripe per rank) and phase 28's
         65536-patch slide in streamed statistics, held to phases 5 and 28."""
-        calls = [(f"{DRY}:build_clustered", dict(n_patches=n, slide_seed=seed, n_tma=N_TMA, dim=DIM,
-                                                  save_similarity=False, **params), {"data": 2})
-                 for n, seed in ((build.FULL_STATS_MAX_N, 5), (BIG_N, 28))]
-        results, wall = gang(2, calls)
-        s.timed(f"gang of 2 ranks on one card: the {build.FULL_STATS_MAX_N}- and {BIG_N}-patch "
-                f"slides in {wall:.1f} s wall (process start-up included; an overhead, not a "
-                "speed-up: the ranks share the card)")
+        results = shared_gang(36)
         for i, (n, key) in enumerate(((build.FULL_STATS_MAX_N, "p5"), (BIG_N, "p28"))):
             per_rank = add_rank_launches(results, i, f"{n}-patch slide")
             share = n // 2
@@ -4295,9 +4410,7 @@ def main() -> int:
             s.timed(f"extraction {dtype}, world 1: rel L2 {res['rel_l2']:.2e}, least cosine "
                     f"{res['min_cosine']:.6f}; {2 * VIT_BATCH / res['ms'] * 1e3:.1f} patches/s "
                     f"(unsharded {2 * VIT_BATCH / res['unsharded_ms'] * 1e3:.1f})")
-        calls = [(f"{DRY}:check_extraction", dict(compute_dtype=dtype, **kw), {"data": 2})
-                 for dtype in ("float32", "bfloat16")]
-        results, wall = gang(2, calls)
+        results = shared_gang(37)
         for i, dtype in enumerate(("float32", "bfloat16")):
             per = [r[i] for r in results]
             for r in per:
@@ -4307,30 +4420,12 @@ def main() -> int:
                     f"({VIT_BATCH // 2} rows of each of 2 batches)")
             s.log(f"  2 ranks {dtype}: rel L2 {[f'{r['rel_l2']:.2e}' for r in per]}, least cosine "
                   f"{[f'{r['min_cosine']:.6f}' for r in per]} (checked in each rank: 1e-5 / 0.999)")
-        s.timed(f"extraction gang of 2: {wall:.1f} s wall (start-up included)")
 
     def mesh_training_phase():
         """One window of each trainer sharded and unsharded: world 1 (NCCL)
         and 2 ranks (gloo); dropout 0 for the equality, the flagship's 0.25
         for the ranks' equality."""
-        bars = {"loss": 1e-5, "grad": 1e-4, "param": 1e-5}
-        exact = flag_config()
-        exact.dropout, exact.enable_random_loss = 0.0, False
-        mf = dataclasses.replace(exact, model_type="mfmf", dropout=0.0, output_dim=MFMF_DIM,
-                                 fusion_blocks_sequence=DEFAULT_FUSION_SEQUENCE)
-        mf.extra = dict(exact.extra, attention_num_heads=MFMF_HEADS)
-        win = dict(G=MESH_WINDOW, wsi=MESH_WSI, tma=16)
-        markers = list(TMA_MARKERS)
-        steps = [
-            ("flagship", "check_survival_step", dict(config=exact, tol=bars, **win)),
-            ("flagship, dropout 0.25", "check_survival_step", dict(config=flag_config(), **win)),
-            ("MFMF", "check_survival_step", dict(config=mf, tol=bars, **win)),
-            ("VAE", "check_vae_step", dict(B=VAE_BATCH, input_dim=DIM, hidden=(512, 256),
-                                           latent=128)),
-            ("alignment (volume)", "check_alignment_step",
-             dict(B=ALIGN_BATCH, markers=markers, feature_dim=DIM, num_layers=2,
-                  loss_type="volume", lambda2=0.0)),
-        ]
+        steps = mesh_training_steps()
         for label, fn, kw in steps:
             res = getattr(dryrun, fn)(mesh1(), timed_steps=5, **kw)
             if "tol" not in kw and fn == "check_survival_step":
@@ -4338,14 +4433,14 @@ def main() -> int:
             if "launches" in res:
                 for name, k in res["launches"].items():
                     main_path_launches[name] += k
-            rate = (win["G"] if fn == "check_survival_step" else kw["B"])
+            rate = (MESH_WINDOW if fn == "check_survival_step" else kw["B"])
             s.timed(f"{label}, world 1: loss {res['loss']:.6f}, rel: loss {res['loss_rel']:.2e}, "
                     + (f"grads {res['grad_rel']:.2e}, " if "grad_rel" in res else "")
                     + f"params {res['param_rel']:.2e}; {rate / res['ms'] * 1e3:.1f} "
                     f"{'cases' if fn == 'check_survival_step' else 'samples'}/s (unsharded "
                     f"{rate / res['unsharded_ms'] * 1e3:.1f})"
                     + (f"; launches {res['launches']}" if "launches" in res else ""))
-        results, wall = gang(2, [(f"{DRY}:{fn}", kw, {"data": 2}) for _, fn, kw in steps])
+        results = shared_gang(38)
         for i, (label, fn, kw) in enumerate(steps):
             per = [r[i] for r in results]
             if fn == "check_survival_step":
@@ -4356,22 +4451,28 @@ def main() -> int:
         s.check(all(l["attention"] > 0 and l["attention_bwd"] > 0
                     for l in (r[2]["launches"] for r in results)),
                 "MFMF under the mesh: K3 and K4 launched in every rank")
-        s.timed(f"training gang of 2: {wall:.1f} s wall (start-up included)")
 
     def gang_phase():
-        """parallel/multihost.py's gang of 2 and dryrun_multichip(4) on the card."""
+        """parallel/multihost.py's gang of 2 and dryrun_multichip(4) on the
+        card, started together: most of each gang's wall is its ranks'
+        start-up, and each checks its own ranks."""
+        from concurrent.futures import ThreadPoolExecutor
+
+        def walled(fn, *args, **kwargs):
+            t0 = time.perf_counter()
+            return fn(*args, **kwargs), time.perf_counter() - t0
+
         torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        out = launch(2, timeout=GANG_TIMEOUT, device="cuda")
+        with ThreadPoolExecutor(max_workers=2) as ex:
+            gang2 = ex.submit(walled, launch, 2, timeout=GANG_TIMEOUT, device="cuda")
+            dry4 = ex.submit(walled, dryrun.dryrun_multichip, 4, timeout=GANG_TIMEOUT, device="cuda")
+            (out, wall2), (text, wall4) = gang2.result(), dry4.result()
         ok = [line for line in out.splitlines() if line.startswith("multihost OK")]
-        s.check(len(ok) == 2, f"multihost gang of 2: {len(ok)} OK lines "
-                              f"({time.perf_counter() - t0:.1f} s wall)")
+        s.check(len(ok) == 2, f"multihost gang of 2: {len(ok)} OK lines ({wall2:.1f} s wall)")
         for line in ok:
             s.log(f"  {line}")
-        t0 = time.perf_counter()
-        text = dryrun.dryrun_multichip(4, timeout=GANG_TIMEOUT, device="cuda")
         s.check(text.count("dryrun_multichip(4): ") == 4 and "mesh {'replica': 2, 'data': 2}" in text,
-                f"dryrun_multichip(4): 4 OK lines ({time.perf_counter() - t0:.1f} s wall)")
+                f"dryrun_multichip(4): 4 OK lines ({wall4:.1f} s wall, beside the gang of 2)")
 
     # ---------------------------------------------------------------- 40
     exported = {}  # the artifacts' directory, read by phases 41-42
@@ -4453,9 +4554,11 @@ def main() -> int:
         live = ModelFactory.create_model(flag_config(), device=dev)
         load_model(rd / "s_0_checkpoint.npz", live)
         live.eval()
-        tr = SurvivalTrainer(Configs(flag["ec"], flag_config()), rd, device=dev)
-        want = tr.evaluate_fold(_CaseTable(raws, labels), FoldSplit(empty_idx, empty_idx,
-                                                                     np.arange(MFMF_CASES)), 0)
+        want = flag.get("fold_0_eval")  # phase 16's evaluate_fold of fold 0 over the 160 cases
+        if want is None:
+            tr = SurvivalTrainer(Configs(flag["ec"], flag_config()), rd, device=dev)
+            want = tr.evaluate_fold(_CaseTable(raws, labels), FoldSplit(empty_idx, empty_idx,
+                                                                         np.arange(MFMF_CASES)), 0)
         want_p, want_r = np.asarray(want["probs"]), np.asarray(want["risk"]).reshape(-1)
         for size in (8, 64):
             got_p, got_r, live_p, live_r = [], [], [], []
@@ -4866,6 +4969,113 @@ def main() -> int:
         finally:
             shutil.rmtree(td, ignore_errors=True)
 
+    # ---------------------------------------------------------------- 45
+    def keep_logits(tr):
+        """Wrap ``tr._eval_summary`` to keep the evaluated cases' logits."""
+        kept = {}
+        plain = tr._eval_summary
+
+        def summary(dataset, outs, *args, **kwargs):
+            kept["logits"] = torch.cat([o[0] for o in outs]).float().cpu().numpy()
+            return plain(dataset, outs, *args, **kwargs)
+
+        tr._eval_summary = summary
+        return kept
+
+    def matrix_phase():
+        """Main path: six of the experiment matrix's smoke representatives
+        (tests/test_experiment_matrix.py's SMOKE, phase 19 runs the
+        seventh) through ``cli.main_survival.run`` at the matrix's own
+        widths over fold 9 of 10 of phase 12's cases, 1 epoch each; the
+        fold-9 checkpoint evaluated on the CPU against the card; then the
+        demo's models on the card against the CPU."""
+        import importlib.util
+
+        from multimodal_fusion_tpu_torch.demo import example_usage as demo
+
+        spec = importlib.util.spec_from_file_location("exp_matrix", ROOT / "experiments" / "matrix.py")
+        matrix = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(matrix)
+        raws, labels = mfmf_raw_cases()
+        ds = _CaseTable(raws, labels)
+        td = Path(tempfile.mkdtemp(prefix="matrix_"))
+        fold9 = create_k_fold_splits(ds.labels, 10, 5678)[9]
+        sizes = (len(fold9.train_idx), len(fold9.val_idx), len(fold9.test_idx))
+        n_train = -(-sizes[0] // MFMF_BATCH)
+        n_eval = 2 * -(-sizes[1] // 16) + -(-sizes[2] // 16)
+        test_only = FoldSplit(empty_idx, empty_idx, fold9.test_idx)
+        try:
+            for name in MATRIX_RUNS:
+                exp_code = name.rsplit("/", 1)[-1]
+                argv = [str(a) for a in matrix.build_argv(name, "cases.csv", td, td / exp_code)]
+                args = cli_main.parse_args(argv + ["--start_k_fold", "9", "--max_epochs", "1", "--tpu_opts",
+                                                   '{"device_data": true}', "--device", "cuda"])
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out_dir = cli_main.run(args, ds)
+                wall = time.perf_counter() - t0
+                add_main_path_counts()
+                if args.model_type == "mfmf":
+                    want_fwd = {"general": 2 * (n_train + n_eval), "narrow_q": 0, "narrow_k": n_train + n_eval}
+                    want_bwd = {"general": 2 * n_train, "narrow_q": 0, "narrow_k": n_train}
+                    s.check(attention_fwd.route_launches == want_fwd
+                            and attention_bwd.route_launches == want_bwd,
+                            f"{exp_code}: routes K3 {attention_fwd.route_launches}, K4 "
+                            f"{attention_bwd.route_launches} (want {want_fwd}, {want_bwd}: K3 general "
+                            f"twice a window, K4 general twice a train window, {n_train} train windows)")
+                else:
+                    no_kernel_launches(f"phase 45, {exp_code}")
+                names = {p_.name for p_ in out_dir.iterdir()}
+                want_files = {f"configs_{exp_code}.json", "splits_9.csv", "s_9_checkpoint.npz",
+                              "fold_9_epochs.csv", "fold_9_summary.json", "summary.csv",
+                              "detailed_results_for_plotting.json"}
+                s.check(want_files <= names, f"{exp_code} (model_type {args.model_type}, "
+                                             f"{len(args.target_channels)} channels): "
+                                             f"{sorted(want_files - names) or 'all'} result files written")
+                fold = json.loads((out_dir / "fold_9_summary.json").read_text())
+                s.check(all(np.isfinite([h_["train_loss"], h_["val_loss"]]).all() for h_ in fold["history"]),
+                        f"{exp_code}: losses finite ({len(fold['history'])} epoch): " + "; ".join(
+                            f"train {h_['train_loss']:.6f} val {h_['val_loss']:.6f}" for h_ in fold["history"]))
+                s.timed(f"{exp_code}: cli.main_survival.run over fold 9 of 10 ({sizes[0]} train, {sizes[1]} "
+                        f"val, {sizes[2]} test cases), 1 epoch and evaluation, its device tables included: "
+                        f"{wall:.2f} s, {sum(sizes) / wall:.1f} cases/s (the fold's {sum(sizes)} cases over "
+                        "the wall)")
+
+                # the fold-9 checkpoint on the card and on the CPU over the test split
+                configs = Configs.load(out_dir / f"configs_{exp_code}.json")
+                card_tr, cpu_tr = (SurvivalTrainer(configs, out_dir, device=d) for d in (dev, "cpu"))
+                card_kept, cpu_kept = keep_logits(card_tr), keep_logits(cpu_tr)
+                reset_counts()  # launches of the comparison are not the main path's
+                card = card_tr.evaluate_fold(ds, test_only, 9)
+                t0 = time.perf_counter()
+                host = cpu_tr.evaluate_fold(ds, test_only, 9)
+                s.log(f"  CPU evaluate_fold of {exp_code}'s {sizes[2]} test cases: "
+                      f"{time.perf_counter() - t0:.1f} s (host)")
+                run_probs = np.asarray([fold["patient_results"][p_]["prob"] for p_ in host["patient_ids"]])
+                p_err = float(np.abs(np.asarray(host["probs"]) - run_probs).max())
+                l_err = float(np.abs(cpu_kept["logits"] - card_kept["logits"]).max())
+                s.check(host["patient_ids"] == card["patient_ids"] and p_err <= 1e-5 and l_err <= 1e-4,
+                        f"{exp_code}: the fold-9 checkpoint's evaluate_fold on the CPU vs the card: "
+                        f"probabilities {p_err:.2e} <= 1e-5 of the run's test probabilities, logits "
+                        f"{l_err:.2e} <= 1e-4 of the card's ({len(host['patient_ids'])} cases)")
+        finally:
+            shutil.rmtree(td, ignore_errors=True)
+
+        # the demo (multimodal_fusion_tpu_torch/demo/example_usage.py) on the
+        # card against the CPU with the same weights
+        reset_counts()
+        for model_type in demo.MODEL_TYPES:
+            model = ModelFactory.create_model(demo.make_config(model_type), seed=0, device=dev)
+            got = demo.demonstrate(model_type, dev, model)
+            host = ModelFactory.create_model(demo.make_config(model_type), seed=0, device="cpu")
+            host.load_state_dict({k: t_.cpu() for k, t_ in model.state_dict().items()})
+            want = demo.demonstrate(model_type, "cpu", host)
+            err = float((got["logits"].cpu() - want["logits"]).abs().max())
+            s.check(err <= 1e-4 and bool(torch.isfinite(got["train_loss"]).all()),
+                    f"demo {model_type}: eval logits card vs CPU {err:.2e} <= 1e-4, train loss finite")
+        no_kernel_launches("phase 45, the demo")
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -4910,6 +5120,7 @@ def main() -> int:
     s.phase("42. main path: reference import and the robustness sweep", import_robust_phase)
     s.phase("43. device MFU accounting", mfu_phase)
     s.phase("44. main path: MFMF mfmf_config1 and mfmf_config2 training", mfmf_config1_phase)
+    s.phase("45. main path: the experiment matrix through the training CLI", matrix_phase)
     if world1:  # the NCCL world of 1 of phases 35-38
         torch.distributed.destroy_process_group()
     for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run, exported):
@@ -4931,6 +5142,7 @@ def main() -> int:
     missing = set(entries) - set(s.kernels)
     if missing:
         s.failures.append(f"no measurements for {sorted(missing)}")
+    s.log(s.walls_line())
     if s.failures:
         print("chip_smoke FAILED:\n  " + "\n  ".join(s.failures), file=sys.stderr)
         return 1

@@ -11,6 +11,7 @@ files.  Its arrays are usable without h5py (``hypergraph.build.process_arrays``)
 from __future__ import annotations
 
 import csv
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -175,13 +176,11 @@ def make_alignment_npz_fixtures(
         (int(rng.integers(1, 4)), int(rng.integers(0, 20)), int(rng.integers(0, 20)), f"{i:03d}")
         for i in range(n_cores)
     ]
-    paths: Dict[str, Path] = {}
-    for mk in markers:
-        data = {}
-        for (b, x, y, pid) in cores:
-            key = f"{mk}_block{b}_x{x}_y{y}_patient{pid}"
-            data[key] = rng.standard_normal((patches_per_core, feature_dim)).astype(np.float32)
-        p = root / f"{mk}.npz"
-        np.savez_compressed(p, **data)
-        paths[mk] = p
+    data = {mk: {f"{mk}_block{b}_x{x}_y{y}_patient{pid}":
+                 rng.standard_normal((patches_per_core, feature_dim)).astype(np.float32)
+                 for (b, x, y, pid) in cores} for mk in markers}
+    paths = {mk: root / f"{mk}.npz" for mk in markers}
+    # zlib releases the GIL: the markers' files compress on threads
+    with ThreadPoolExecutor(max_workers=min(8, len(paths) or 1)) as ex:
+        list(ex.map(lambda mk: np.savez_compressed(paths[mk], **data[mk]), markers))
     return paths

@@ -71,6 +71,7 @@ required = {
     "multimodal_fusion_tpu_torch.parallel.mesh",
     "multimodal_fusion_tpu_torch.parallel.multihost",
     "multimodal_fusion_tpu_torch.parallel.dryrun",
+    "multimodal_fusion_tpu_torch.demo.example_usage",
 }
 assert required <= set(names), sorted(required - set(names))
 print(len(names))
