@@ -20,6 +20,11 @@ to the model's input size and the ImageNet normalisation run on the device;
 other patches are preprocessed on the host.  The last batch is padded to
 the batch size and the padding dropped.  The host waits for the device
 once, when it collects the features.
+
+Spans and counters (``utils.profiling``): ``extract.core`` around each
+core, holding ``extract.cut``, ``extract.stage`` and ``extract.wait``;
+``extract.cores``, ``extract.waits``, ``extract.rows`` (the encoder's rows,
+padding included) and ``extract.patches`` (the real rows among them).
 """
 
 from __future__ import annotations
@@ -40,6 +45,7 @@ from multimodal_fusion_tpu_torch.models.vit import (
 )
 from multimodal_fusion_tpu_torch.ops.resize import apply_resize, resize, resize_weights
 from multimodal_fusion_tpu_torch.parallel.mesh import all_gather_rows, divides
+from multimodal_fusion_tpu_torch.utils.profiling import count, span
 
 COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -138,13 +144,15 @@ def make_feature_extractor(
         if n == 0:
             return np.zeros((0, net.embed_dim), np.float32)
         raw = all(p.dtype == np.uint8 and p.shape == patches[0].shape for p in patches)
-        if raw:
-            host = torch.empty((n,) + tuple(patches[0].shape), dtype=torch.uint8, pin_memory=pinned)
-            np.stack(patches, out=host.numpy())
-        else:
-            host = torch.empty((n, input_size, input_size, 3), dtype=torch.float32,
-                               pin_memory=pinned)
-            np.stack([preprocess_patch(p, size=input_size) for p in patches], out=host.numpy())
+        with span("extract.stage"):
+            if raw:
+                host = torch.empty((n,) + tuple(patches[0].shape), dtype=torch.uint8,
+                                   pin_memory=pinned)
+                np.stack(patches, out=host.numpy())
+            else:
+                host = torch.empty((n, input_size, input_size, 3), dtype=torch.float32,
+                                   pin_memory=pinned)
+                np.stack([preprocess_patch(p, size=input_size) for p in patches], out=host.numpy())
         step = run_raw if raw else run
         feats = []
         for start in range(0, n, batch_size):
@@ -159,8 +167,13 @@ def make_feature_extractor(
                 chunk[:hi - lo].copy_(host[lo:hi], non_blocking=True)
             chunk[max(hi - lo, 0):].zero_()
             out = step(chunk)
+            count("extract.rows", rows)
+            count("extract.patches", max(hi - lo, 0))
             feats.append((out if share is None else all_gather_rows(mesh, out))[:m])
-        return torch.cat(feats).cpu().numpy()  # the one wait for the device
+        with span("extract.wait"):
+            feats = torch.cat(feats).cpu().numpy()  # the one wait for the device
+        count("extract.waits")
+        return feats
 
     return extract
 
@@ -179,12 +192,15 @@ def extract_marker_features(
     items = image_files.items() if hasattr(image_files, "items") else image_files
     out = {}
     for key, img in items:
-        patches = extract_patches_from_image(
-            img, patch_size, stride, white_threshold, min_content_ratio
-        )
-        if not patches:
-            continue
-        out[key] = extractor(patches)
+        with span("extract.core"):
+            with span("extract.cut"):
+                patches = extract_patches_from_image(
+                    img, patch_size, stride, white_threshold, min_content_ratio
+                )
+            if not patches:
+                continue
+            count("extract.cores")
+            out[key] = extractor(patches)
     return out
 
 

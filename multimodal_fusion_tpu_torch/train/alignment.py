@@ -64,6 +64,7 @@ from multimodal_fusion_tpu_torch.parallel.mesh import (
 )
 from multimodal_fusion_tpu_torch.train.checkpoint import save_model
 from multimodal_fusion_tpu_torch.train.optim import set_lr
+from multimodal_fusion_tpu_torch.utils.profiling import StageTimer, span
 
 
 def make_alignment_apply_fn(model: MultiModalAlignmentModel):
@@ -136,8 +137,6 @@ class MultiModalAlignmentTrainer:
         # train_step, validation
         self.timer = None
         if verbose_timing:
-            from multimodal_fusion_tpu_torch.utils.profiling import StageTimer
-
             self.timer = StageTimer()
         self.best_val_loss = float("inf")
         self.early_stop_counter = 0
@@ -213,11 +212,6 @@ class MultiModalAlignmentTrainer:
         # CosineAnnealingLR(T_max=100, eta_min=1e-6), stepped per epoch wrap
         eta_min = 1e-6
         return eta_min + (self.base_lr - eta_min) * (1 + math.cos(math.pi * (epoch % 200) / 100)) / 2
-
-    def _sync_time(self, t0: float) -> float:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        return time.perf_counter() - t0
 
     def batch_stream(self, train_view, batch_size: int, rng: np.random.Generator,
                      device_data: bool):
@@ -326,16 +320,16 @@ class MultiModalAlignmentTrainer:
             pending.clear()
 
         batches = self.batch_stream(train_view, batch_size, rng, device_data)
+        # the stages are the tracer's spans; verbose_timing also times them
+        stage = self.timer.stage if self.timer else span
         step_i = 0
         while step_i < max_steps:
-            t_data = time.perf_counter()
-            pos, neg, lr = next(batches)
-            if self.timer:
-                self.timer.record("data_loading", time.perf_counter() - t_data)
-            t_step = time.perf_counter()
-            pending.append(self._step(pos, neg, lr, generator))
-            if self.timer:
-                self.timer.record("train_step", self._sync_time(t_step))
+            with stage("data_loading"):
+                pos, neg, lr = next(batches)
+            with stage("train_step"):
+                pending.append(self._step(pos, neg, lr, generator))
+                if self.timer and self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
             step_i += 1
 
             if save_interval and save_path and step_i % save_interval == 0 and self.is_main:
@@ -345,10 +339,8 @@ class MultiModalAlignmentTrainer:
             # (trainer.py:761-776; no extra final-step validation)
             if step_i % val_interval == 0:
                 flush_pending()
-                t_val = time.perf_counter()
-                val_loss = self.validate(val_view, batch_size)
-                if self.timer:
-                    self.timer.record("validation", time.perf_counter() - t_val)
+                with stage("validation"):
+                    val_loss = self.validate(val_view, batch_size)
                 self.history["val_loss"].append({"step": step_i - 1, "loss": val_loss})
                 if self.scalars is not None:
                     svd_last = self.history["svd_values"][-1] if self.history["svd_values"] else []

@@ -94,6 +94,7 @@ from multimodal_fusion_tpu_torch.train.checkpoint import load_model, save_model
 from multimodal_fusion_tpu_torch.train.metrics import accuracy, binary_auroc, multiclass_auroc_macro
 from multimodal_fusion_tpu_torch.train.optim import LRSchedule, make_optimizer, set_lr
 from multimodal_fusion_tpu_torch.utils.logging import FoldLogger
+from multimodal_fusion_tpu_torch.utils.profiling import span
 
 # device_data="auto" takes the device tables only when they fit this
 # budget (the JAX package's rule, kept as it is)
@@ -169,7 +170,10 @@ def window_step(model, optimizer, window, generator, mesh=None, remat: bool = Fa
     results gathered from every rank, and every rank computes it whole, so
     it is divided by the mesh size (the gather's backward sums the ranks'
     gradients); the gradients are then summed over the mesh, which gives
-    every rank the unsharded window's gradient."""
+    every rank the unsharded window's gradient.
+
+    The step is the span ``train.window``, tiled by ``train.forward``,
+    ``train.backward`` and ``train.optimizer`` (``utils.profiling``)."""
     labels = window["label"]
     G = labels.shape[0] if n_cases is None else n_cases
     n = 1 if mesh is None else mesh.size
@@ -177,25 +181,29 @@ def window_step(model, optimizer, window, generator, mesh=None, remat: bool = Fa
     case = {"channels": window["channels"], "masks": window["masks"]}
 
     model.remat = remat
-    res = model(case, labels, generator=generator, train=True)
-    losses = model.loss_fn(res["logits"], labels, res)
-    total = losses.sum() if sharded or n == 1 else losses.sum() / n
-    if model.has_group_loss():
-        group = dict(res, label=labels)
-        if "time" in window:  # the Cox partial likelihood's inputs
-            group["time"], group["event"] = window["time"], window["event"]
+    with span("train.window"):
+        with span("train.forward"):
+            res = model(case, labels, generator=generator, train=True)
+            losses = model.loss_fn(res["logits"], labels, res)
+            total = losses.sum() if sharded or n == 1 else losses.sum() / n
+            if model.has_group_loss():
+                group = dict(res, label=labels)
+                if "time" in window:  # the Cox partial likelihood's inputs
+                    group["time"], group["event"] = window["time"], window["event"]
+                if sharded:
+                    per_case = {k: v for k, v in group.items() if torch.is_tensor(v)
+                                and v.ndim >= 1 and v.shape[0] == labels.shape[0]}
+                    group.update(all_gather_rows_dict(mesh, per_case))
+                total = total + model.group_loss_fn(group) / n
+        with span("train.backward"):
+            optimizer.zero_grad(set_to_none=True)
+            (total / G).backward()
+            all_reduce_grads(mesh, [p for p in model.parameters()])
+        with span("train.optimizer"):
+            optimizer.step()
         if sharded:
-            per_case = {k: v for k, v in group.items()
-                        if torch.is_tensor(v) and v.ndim >= 1 and v.shape[0] == labels.shape[0]}
-            group.update(all_gather_rows_dict(mesh, per_case))
-        total = total + model.group_loss_fn(group) / n
-    optimizer.zero_grad(set_to_none=True)
-    (total / G).backward()
-    all_reduce_grads(mesh, [p for p in model.parameters()])
-    optimizer.step()
-    if sharded:
-        return all_reduce(mesh, losses.detach().sum()) / G
-    return losses.detach().mean()
+            return all_reduce(mesh, losses.detach().sum()) / G
+        return losses.detach().mean()
 
 
 def _group_eval(model):

@@ -1,0 +1,9 @@
+"""Device time of the ops launched inside the program's ``train.optimizer``
+span (``optimizer.step``: Adam with coupled L2), per training window, over
+the program window (``harness/program.py``), ms."""
+
+from portbench.harness.program import device_ms_per_window
+
+
+def read(run):
+    return device_ms_per_window(run, "train.optimizer")
