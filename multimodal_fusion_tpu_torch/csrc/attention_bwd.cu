@@ -152,10 +152,11 @@ __device__ __forceinline__ T* out_row(void* out, const BwdParams& p, int b, int 
 // holding one (their rows spread over all its threads), writes zeros for
 // the rest, and returns at once when it owns none.  An all-masked case is
 // dq = 0 outright, and its dkdv takes every run (the uniform p carries dv).
+// The listing (case_has_valid, list_runs, copy_run_tile) is
+// attention_common.cuh's, shared with K3's float32 general route.
 
 constexpr int STAGES = 2;    // streamed-tile ring depth: tile j+1 copies while tile j computes
 constexpr int GC = 64;       // streamed rows per tile
-constexpr int SUB = 16;      // keys per run
 constexpr int MAXR = 1024;   // key runs listed at a time by a dq block (16384 keys)
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -194,76 +195,6 @@ __device__ __forceinline__ void grad_fast(const BwdParams& p, float sl, float s,
 __device__ __forceinline__ float key_cs(const BwdParams& p, int8_t st) { return st == kValid ? p.scale : 0.f; }
 __device__ __forceinline__ float key_pf(int8_t st, bool has_valid) {
   return (st == kValid || (!has_valid && st == kMasked)) ? 1.f : 0.f;
-}
-
-// Whether batch element b keeps at least one key: a block-wide scan of its
-// mask row, 128 keys a step, that stops at the first step holding a valid
-// key (the first, for the prefix masks of a padded bag).  Every thread of
-// the block must call it.
-__device__ __forceinline__ bool case_has_valid(const uint8_t* mask, long long mask_sb, int Tk, int b) {
-  if (mask == nullptr) return Tk > 0;
-  for (int k0 = 0; k0 < Tk; k0 += NT) {
-    const int k = k0 + threadIdx.x;
-    if (__syncthreads_or(k < Tk && mask[b * mask_sb + k] != 0)) return true;
-  }
-  return false;
-}
-
-// whether run r (keys 16r..16r+15) of batch element b holds work: a valid
-// key, or (all-masked case) any key below Tk
-__device__ __forceinline__ bool run_has_work(const BwdParams& p, int b, int r, bool has_valid) {
-  bool on = false;
-#pragma unroll
-  for (int e = 0; e < SUB; ++e) {
-    const int8_t st = key_state(p.mask, p.mask_sb, p.Tk, b, r * SUB + e);
-    on |= has_valid ? st == kValid : st != kOutside;
-  }
-  return on;
-}
-
-// The runs r0 .. r0 + n - 1 of batch element b that hold work, in order,
-// into runs[]; returns their count.  Every thread must call it; runs[] is
-// complete for every thread on return.
-__device__ __forceinline__ int list_runs(const BwdParams& p, int b, int r0, int n, bool has_valid, int* runs,
-                                         int* wsum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int total = 0;
-  for (int base = 0; base < n; base += NT) {
-    const int i = base + threadIdx.x;
-    const bool on = i < n && run_has_work(p, b, r0 + i, has_valid);
-    const unsigned bal = __ballot_sync(0xffffffffu, on);
-    if (lane == 0) wsum[warp] = __popc(bal);
-    __syncthreads();
-    int off = total, add = 0;
-#pragma unroll
-    for (int w = 0; w < NT / 32; ++w) {
-      off += w < warp ? wsum[w] : 0;
-      add += wsum[w];
-    }
-    if (on) runs[off + __popc(bal & ((1u << lane) - 1u))] = r0 + i;
-    total += add;
-    __syncthreads();  // wsum is rewritten next round; runs[] is complete
-  }
-  return total;
-}
-
-// rows of a streamed key tile gathered from listed runs: tile row rr is key
-// runs[e0 + rr / SUB] * SUB + rr % SUB, or nothing (zero-filled) past the
-// list's n entries or Tk; 16-byte cp.async copies as copy_tile
-template <typename E, int HD, int LD, int C = GC>
-__device__ __forceinline__ void copy_run_tile(E* dst, const E* src, long long st, const int* runs, int e0,
-                                              int n, int Tk, int hd) {
-  constexpr int PER = 16 / sizeof(E);
-  constexpr int CH = HD / PER;
-  for (int i = threadIdx.x; i < C * CH; i += NT) {
-    const int rr = i / CH, c = i - (i / CH) * CH;
-    const int e = e0 + rr / SUB;
-    const int g = e < n ? runs[e] * SUB + rr % SUB : Tk;
-    const int left = (hd - c * PER) * static_cast<int>(sizeof(E));
-    const int bytes = g < Tk ? max(0, min(16, left)) : 0;
-    const E* from = bytes > 0 ? src + g * st + c * PER : src;
-    cp_async16(dst + rr * LD + c * PER, from, bytes);
-  }
 }
 
 // The streamed columns of tile t, read into registers of threads tid < GC
@@ -620,7 +551,7 @@ __global__ void __launch_bounds__(NT, GenF32<HD>::MINB) attn_bwd_dq_f32_kernel(c
 
   const int n_runs = (p.Tk + SUB - 1) / SUB;
   for (int r0 = 0; r0 < n_runs; r0 += MAXR) {
-    const int n = list_runs(p, b, r0, min(MAXR, n_runs - r0), true, runs, wsum);
+    const int n = list_runs(p.mask, p.mask_sb, p.Tk, b, r0, min(MAXR, n_runs - r0), true, runs, wsum);
     const int n_tiles = (n + C / SUB - 1) / (C / SUB);
     auto fill = [&](int t) {  // tile t into its ring slot
       const int slot = t % STAGES;
@@ -847,7 +778,8 @@ __global__ void __launch_bounds__(NT, HD == 16 ? 4 : 1) attn_bwd_bf16_kernel(con
       n_tiles = (p.Tq + GC - 1) / GC;
     } else {
       const int n_runs = (p.Tk + SUB - 1) / SUB;
-      n = list_runs(p, b, seg * MAXR, min(MAXR, n_runs - seg * MAXR), true, runs, wsum);
+      n = list_runs(p.mask, p.mask_sb, p.Tk, b, seg * MAXR, min(MAXR, n_runs - seg * MAXR), true,
+                    runs, wsum);
       n_tiles = (n + GC / SUB - 1) / (GC / SUB);
     }
     auto fill = [&](int t) {  // tile t into its ring slot

@@ -1,8 +1,10 @@
 // Pieces shared by the fused-attention forward (attention.cu, K3) and
 // backward (attention_bwd.cu, K4): tile sizes, the routes, the mask
-// constants, the per-column key state, the hash dropout mask, the 16-dim
-// row-slice loads of the narrow routes, and the general routes' 16-byte
-// cp.async tile copies and bf16 ldmatrix / mma.sync helpers.
+// constants, the per-column key state, the hash dropout mask, the listing of
+// the runs of 16 keys that hold work under a key mask, the 16-dim row-slice
+// loads of the narrow routes, and the general routes' 16-byte cp.async tile
+// copies (whole tiles, or tiles gathered from listed runs) and bf16
+// ldmatrix / mma.sync helpers.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -76,6 +78,77 @@ __device__ __forceinline__ void load_colstate(const uint8_t* mask, long long mas
                                               int k0, int8_t* colstate) {
   const int tid = threadIdx.x;
   if (tid < BKV) colstate[tid] = key_state(mask, mask_sb, Tk, b, k0 + tid);
+}
+
+// ------------------------------------------------- runs of keys with work
+//
+// The general routes under a key mask take keys in runs of SUB: for a case
+// with at least one valid key, a user-masked key has p = exp(-1e9 - m) == 0
+// exactly in float32 (m is at least that valid key's score), so a run
+// without a valid key adds nothing and is skipped; a case with no valid key
+// keeps every run below Tk (its rows average uniformly).  A block lists the
+// runs with work and streams key tiles gathered from the list.
+
+constexpr int SUB = 16;  // keys per run
+
+// Whether batch element b keeps at least one key: a block-wide scan of its
+// mask row, 128 keys a step, that stops at the first step holding a valid
+// key (the first, for the prefix masks of a padded bag).  Every thread of
+// the block must call it.
+__device__ __forceinline__ bool case_has_valid(const uint8_t* mask, long long mask_sb, int Tk, int b) {
+  if (mask == nullptr) return Tk > 0;
+  for (int k0 = 0; k0 < Tk; k0 += NT) {
+    const int k = k0 + threadIdx.x;
+    if (__syncthreads_or(k < Tk && mask[b * mask_sb + k] != 0)) return true;
+  }
+  return false;
+}
+
+// whether run r (keys 16r..16r+15) of batch element b holds work: a valid
+// key, or (all-masked case) any key below Tk
+__device__ __forceinline__ bool run_has_work(const uint8_t* mask, long long mask_sb, int Tk, int b, int r,
+                                             bool has_valid) {
+  bool on = false;
+#pragma unroll
+  for (int e = 0; e < SUB; ++e) {
+    const int8_t st = key_state(mask, mask_sb, Tk, b, r * SUB + e);
+    on |= has_valid ? st == kValid : st != kOutside;
+  }
+  return on;
+}
+
+// The runs r0 .. r0 + n - 1 of batch element b that hold work, in order,
+// into runs[]; returns their count.  wsum: NT / 32 ints of shared scratch.
+// Every thread must call it; runs[] is complete for every thread on return.
+__device__ __forceinline__ int list_runs(const uint8_t* mask, long long mask_sb, int Tk, int b, int r0, int n,
+                                         bool has_valid, int* runs, int* wsum) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < n; base += NT) {
+    const int i = base + threadIdx.x;
+    const bool on = i < n && run_has_work(mask, mask_sb, Tk, b, r0 + i, has_valid);
+    const unsigned bal = __ballot_sync(0xffffffffu, on);
+    if (lane == 0) wsum[warp] = __popc(bal);
+    __syncthreads();
+    int off = total, add = 0;
+#pragma unroll
+    for (int w = 0; w < NT / 32; ++w) {
+      off += w < warp ? wsum[w] : 0;
+      add += wsum[w];
+    }
+    if (on) runs[off + __popc(bal & ((1u << lane) - 1u))] = r0 + i;
+    total += add;
+    __syncthreads();  // wsum is rewritten next round; runs[] is complete
+  }
+  return total;
+}
+
+// the key of row rr of a tile gathered from listed runs, the tile's first
+// run being entry e0 of the list's n: runs[e0 + rr / SUB] * SUB + rr % SUB,
+// or Tk (no key) past the list
+__device__ __forceinline__ int run_key(const int* runs, int e0, int n, int rr, int Tk) {
+  const int e = e0 + rr / SUB;
+  return e < n ? runs[e] * SUB + rr % SUB : Tk;
 }
 
 // Dynamic shared memory above 48 KB needs the opt-in, once per kernel and
@@ -218,6 +291,24 @@ __device__ __forceinline__ void copy_tile(E* dst, const E* src, long long st, in
     const int bytes = g < n_rows ? max(0, min(16, left)) : 0;
     const E* from = bytes > 0 ? src + g * st + c * PER : src;
     cp_async16(dst + r * LD + c * PER, from, bytes);
+  }
+}
+
+// rows of a streamed key tile gathered from listed runs: tile row rr is key
+// run_key(runs, e0, n, rr, Tk), or nothing (zero-filled) past the list's n
+// entries or Tk; 16-byte cp.async copies as copy_tile
+template <typename E, int HD, int LD, int C = BKV>
+__device__ __forceinline__ void copy_run_tile(E* dst, const E* src, long long st, const int* runs, int e0,
+                                              int n, int Tk, int hd) {
+  constexpr int PER = 16 / sizeof(E);
+  constexpr int CH = HD / PER;
+  for (int i = threadIdx.x; i < C * CH; i += NT) {
+    const int rr = i / CH, c = i - (i / CH) * CH;
+    const int g = run_key(runs, e0, n, rr, Tk);
+    const int left = (hd - c * PER) * static_cast<int>(sizeof(E));
+    const int bytes = g < Tk ? max(0, min(16, left)) : 0;
+    const E* from = bytes > 0 ? src + g * st + c * PER : src;
+    cp_async16(dst + rr * LD + c * PER, from, bytes);
   }
 }
 

@@ -10,7 +10,10 @@ at :553 from ``_fused_attention_bwd_hxd``).  ``attention_fwd`` and
 on CPU tensors; on a CUDA tensor they launch the kernel or raise.
 ``attention_fwd.launches`` and ``attention_bwd.launches`` count the
 wrapper calls that launched (one call may be two kernel launches), and
-``.route_launches`` counts them per route.
+``.route_launches`` counts them per route.  The tracer's counter
+``attention_fwd.run_listed`` (``utils.profiling.count``) counts K3's float32
+``general`` launches with a key mask: those list the runs of 16 keys that
+hold a valid key and skip the rest.
 
 Routes (``_route``): where one side is at most ``NARROW`` (16) rows or
 keys, the narrow routes keep that side whole in shared memory and spread
@@ -46,6 +49,7 @@ from multimodal_fusion_tpu_torch.ops.attention import (
     plain_fused_attention,
     plain_fused_attention_bwd,
 )
+from multimodal_fusion_tpu_torch.utils import profiling
 
 MAX_HEAD_DIM = 128
 NARROW = 16  # mirrors csrc/attention_common.cuh: NARROW
@@ -218,6 +222,8 @@ def attention_fwd(
         _cuda.check(err, "attention kernel")
         attention_fwd.launches += 1
         attention_fwd.route_launches[route] += 1
+        if route == "general" and mask_ptr is not None and q.dtype == torch.float32:
+            profiling.count("attention_fwd.run_listed")
     if unbatched:
         return o[0], m[0], l[0]
     return o, m, l

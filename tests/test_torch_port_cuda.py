@@ -11,7 +11,11 @@ import pytest
 import torch
 
 from multimodal_fusion_tpu_torch.device import resolve_device
-from multimodal_fusion_tpu_torch.ops.attention import plain_fused_attention, plain_fused_attention_bwd
+from multimodal_fusion_tpu_torch.ops.attention import (
+    fused_attention,
+    plain_fused_attention,
+    plain_fused_attention_bwd,
+)
 from multimodal_fusion_tpu_torch.ops.attention_kernel import ROUTES, _route, attention_bwd, attention_fwd
 from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide
 from multimodal_fusion_tpu_torch.ops import _cuda, knn_kernel
@@ -21,6 +25,7 @@ from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
     similarity_rect,
     similarity_rect_plain,
 )
+from multimodal_fusion_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.cuda
 
@@ -438,15 +443,23 @@ def test_attention_bwd_kernel_all_masked_and_per_case_seeds(cuda):
     assert torch.equal(shared[2][0], got[2][0]) and not torch.equal(shared[2][1], got[2][1])
 
 
-def _config1_mask(rng, kind, b, cuda):
-    """mfmf_config1's key masks for ``b`` cases: ``wsi`` keeps a prefix of
-    2048-4096 of a 4096 bag, ``buckets`` 9-16 of each of 8 markers' 64-row
-    buckets; case 0 keeps no key."""
+def _key_mask(rng, kind, b, tk, cuda, all_masked=True):
+    """Key masks for ``b`` cases: ``wsi`` keeps a prefix of tk/2..tk keys
+    (mfmf_config1's WSI bag: 2048-4096 of 4096), ``buckets`` 9-16 keys of
+    each 64-key bucket (its 8 markers at tk 512), ``scattered`` each key
+    with probability 0.05 (a run of 16 then holds none 44% of the time).
+    Case 0 keeps no key when ``all_masked``, else at least its first."""
     if kind == "wsi":
-        mask = np.arange(4096)[None] < rng.integers(2048, 4097, (b, 1))
+        mask = np.arange(tk)[None] < rng.integers(tk // 2, tk + 1, (b, 1))
+    elif kind == "buckets":
+        mask = np.concatenate([np.arange(64)[None] < rng.integers(9, 17, (b, 1))
+                               for _ in range(tk // 64)], axis=1)
     else:
-        mask = np.concatenate([np.arange(64)[None] < rng.integers(9, 17, (b, 1)) for _ in range(8)], axis=1)
-    mask[0] = False
+        mask = rng.random((b, tk)) < 0.05
+    if all_masked:
+        mask[0] = False
+    else:
+        mask[:, 0] = True
     return torch.as_tensor(mask, device=cuda)
 
 
@@ -462,7 +475,7 @@ def test_attention_bwd_general_hd16_on_config1_masks(cuda, kind, tq, tk, drop, d
     seeds; against the plain version, two launches bit-identical."""
     rng = np.random.default_rng(tq + 3 * drop)
     b, h, hd = 6, 8, 16
-    mask = _config1_mask(rng, kind, b, cuda)
+    mask = _key_mask(rng, kind, b, tk, cuda)
     dropout = {}
     if drop:
         seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=cuda)
@@ -494,7 +507,7 @@ def test_attention_general_hd16_on_config1_masks(cuda, kind, tq, tk, dtype):
     mfmf_config1's blocks 2 and 3 on 6 cases, case 0 all masked, against
     the plain version; two launches bit-identical."""
     rng = np.random.default_rng(tk)
-    mask = _config1_mask(rng, kind, 6, cuda)
+    mask = _key_mask(rng, kind, 6, tk, cuda)
     q, k, v = _attn_inputs(rng, 6, tq, tk, 8, 16, dtype, cuda)
     before = attention_fwd.route_launches["general"]
     got = attention_fwd(q, k, v, mask)
@@ -502,6 +515,112 @@ def test_attention_general_hd16_on_config1_masks(cuda, kind, tq, tk, dtype):
     assert attention_fwd.route_launches["general"] == before + 2
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     _check_attn(got, plain_fused_attention(q, k, v, mask), (q, k, v), mask)
+
+
+# K3's float32 general route under a key mask lists the runs of 16 keys that
+# hold a valid key and streams only those (attention.cu).  The shapes below
+# reach it at hd 16 and hd 64 with mfmf_config1's masks, scattered keys and
+# key sides of several listed segments (over 4096 keys).
+_LISTING = [  # (hd, b, tq, tk, mask kind)
+    (16, 6, 512, 4096, "wsi"),  # config1 block 2: the WSI bag
+    (16, 6, 4096, 512, "buckets"),  # config1 block 3: 8 markers
+    (16, 6, 300, 4096, "scattered"),
+    (16, 2, 70, 9000, "scattered"),  # three listed segments
+    (64, 3, 130, 1024, "buckets"),
+    (64, 3, 130, 1100, "wsi"),
+    (64, 3, 130, 1100, "scattered"),
+    (64, 2, 70, 9000, "wsi"),
+]
+
+
+def _listing_seeds(rng, b, cuda, drop):
+    if not drop:
+        return {}
+    seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=cuda)
+    return dict(dropout_rate=0.1, seed=seeds)
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["no_dropout", "per_case_seeds"])
+@pytest.mark.parametrize("hd,b,tq,tk,kind", _LISTING)
+def test_attention_f32_general_lists_runs_under_a_mask(cuda, hd, b, tq, tk, kind, drop):
+    """K3's float32 general route under a key mask, case 0 keeping no key
+    (the uniform average, m = -1e9), with and without dropout 0.1 under
+    per-case seeds: against the plain version at the file's tolerances, two
+    launches bit-identical."""
+    rng = np.random.default_rng(tq + tk + hd + drop)
+    mask = _key_mask(rng, kind, b, tk, cuda)
+    dropout = _listing_seeds(rng, b, cuda, drop)
+    q, k, v = _attn_inputs(rng, b, tq, tk, 8 if hd == 16 else 2, hd, torch.float32, cuda)
+    assert _route(tq, tk, hd) == "general"
+    got = attention_fwd(q, k, v, mask, **dropout)
+    again = attention_fwd(q, k, v, mask, **dropout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    _check_attn(got, plain_fused_attention(q, k, v, mask, **dropout), (q, k, v), mask, **dropout)
+    assert torch.all(got[1][0] == -1e9)
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["no_dropout", "per_case_seeds"])
+@pytest.mark.parametrize("hd,b,tq,tk,kind", [_LISTING[0], _LISTING[1], _LISTING[6]])
+def test_attention_f32_general_listing_gradients(cuda, hd, b, tq, tk, kind, drop):
+    """Gradients through ``FusedAttention`` (K3's saved m and l feed K4)
+    against the plain versions on the same card tensors: relative L2 within
+    1e-5, as K4 against its plain version."""
+    rng = np.random.default_rng(7 * tk + hd + drop)
+    mask = _key_mask(rng, kind, b, tk, cuda)
+    dropout = _listing_seeds(rng, b, cuda, drop)
+    qkv = _attn_inputs(rng, b, tq, tk, 8 if hd == 16 else 2, hd, torch.float32, cuda)
+    w = torch.as_tensor(rng.standard_normal(qkv[0].shape).astype(np.float32), device=cuda)
+    grads = []
+    for plain in (False, True):
+        leaves = [x.clone().requires_grad_(True) for x in qkv]
+        before = attention_bwd.route_launches["general"]
+        o = fused_attention(*leaves, mask, plain=plain, **dropout)
+        (o * w).sum().backward()
+        assert attention_bwd.route_launches["general"] == before + (not plain)
+        grads.append([x.grad for x in leaves])
+    for g, want, name in zip(*grads, ("dq", "dk", "dv")):
+        assert _rel_l2(g, want) <= 1e-5, (name, _rel_l2(g, want))
+
+
+@pytest.mark.parametrize("hd,b,tq,tk,kind", [_LISTING[0], _LISTING[1], _LISTING[3], _LISTING[6]])
+def test_attention_f32_general_never_reads_skipped_runs(cuda, hd, b, tq, tk, kind):
+    """In cases that keep a key, K and V of every run of 16 keys without a
+    valid key are NaN: the output stays finite and equal, bit for bit, to
+    the output with those runs zero-filled (a kernel that read them would
+    give 0 * NaN = NaN)."""
+    rng = np.random.default_rng(tq + tk + hd)
+    mask = _key_mask(rng, kind, b, tk, cuda, all_masked=False)
+    q, k, v = _attn_inputs(rng, b, tq, tk, 8 if hd == 16 else 2, hd, torch.float32, cuda)
+    runs = torch.nn.functional.pad(mask, (0, -tk % 16)).view(b, -1, 16).any(-1)
+    skipped = ~runs.repeat_interleave(16, dim=1)[:, :tk]
+    assert skipped.any()
+    zero, nan = [], []
+    for fill, out in ((0.0, zero), (float("nan"), nan)):
+        kf, vf = k.clone(), v.clone()
+        kf[skipped], vf[skipped] = fill, fill
+        out.extend(attention_fwd(q, kf, vf, mask))
+    assert all(bool(torch.isfinite(x).all()) for x in nan)
+    assert all(torch.equal(x, y) for x, y in zip(nan, zero))
+    _check_attn(zero, plain_fused_attention(q, k, v, mask), (q, k, v), mask)
+
+
+def test_attention_run_listed_counter(cuda):
+    """``attention_fwd.run_listed`` counts K3's float32 general launches
+    with a key mask: not a mask-free one, a bf16 one or a narrow route's."""
+    rng = np.random.default_rng(8)
+    q, k, v = _attn_inputs(rng, 2, 70, 300, 2, 16, torch.float32, cuda)
+    mask = _key_mask(rng, "scattered", 2, 300, cuda)
+
+    def listed(*args):
+        before = profiling.counters().get("attention_fwd.run_listed", 0)
+        attention_fwd(*args)
+        return profiling.counters().get("attention_fwd.run_listed", 0) - before
+
+    assert listed(q, k, v, mask) == 1
+    assert listed(q, k, v, mask[0]) == 1
+    assert listed(q, k, v) == 0
+    assert listed(q.bfloat16(), k.bfloat16(), v.bfloat16(), mask) == 0
+    assert listed(q[:, :5], k, v, mask) == 0  # narrow_q
 
 
 def test_gradients_reach_projections_through_auto(cuda):

@@ -1,19 +1,21 @@
 #!/usr/bin/env python3
-"""Time K4 (the fused-attention backward) and one mfmf_config1 training
-window from several checkouts of the repo, in turns, on one CUDA card.
+"""Time K3 and K4 (the fused-attention forward and backward) and one
+mfmf_config1 training window from several checkouts of the repo, in turns,
+on one CUDA card.
 
-    python tools/k4_turns.py PARENT_TREE CHANGE_TREE [--order 0,1,1,0]
+    python tools/attention_turns.py PARENT_TREE CHANGE_TREE [--order 0,1,1,0]
 
 Each turn is a fresh process that imports ``multimodal_fusion_tpu_torch``
 from its tree (building that tree's kernels into the tree's own
 ``_build/`` on first use) and times, with CUDA events after a warm-up:
 
-- K4 (``attention_bwd``) at mfmf_config1's two general blocks, [64 x 8
-  heads, 512 x 4096, 16] with the WSI bag's key mask (2048-4096 valid of
-  4096) and [64 x 8, 4096 x 512, 16] with the 8 markers' bucket mask (9-16
-  valid of each 64), and at the bag shape [1 x 8, 4096, 64] with no mask,
-  each in float32 and bf16; the inputs come from one numpy seed, so every
-  tree sees the same numbers;
+- K3 (``attention_fwd``) and K4 (``attention_bwd``) at mfmf_config1's two
+  general blocks, [64 x 8 heads, 512 x 4096, 16] with the WSI bag's key
+  mask (2048-4096 valid of 4096) and [64 x 8, 4096 x 512, 16] with the 8
+  markers' bucket mask (9-16 valid of each 64), and at the bag shape [1 x
+  8, 4096, 64] with no mask, each in float32 and bf16; K3 also at the ViT's
+  shape [32 x 16, 257, 64] with no mask; the inputs come from one numpy
+  seed, so every tree sees the same numbers;
 - one 64-case training window of mfmf_config1 (its model at the script's
   width, ``SurvivalTrainer._train_step`` with Adam) on a window held on the
   card, the median of 5 after 2 warm-ups.
@@ -61,7 +63,7 @@ def worker(tree: str) -> dict:
     from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd, attention_fwd
 
     if not torch.cuda.is_available():
-        raise SystemExit("k4_turns: needs a CUDA card")
+        raise SystemExit("attention_turns: needs a CUDA card")
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
 
@@ -84,15 +86,20 @@ def worker(tree: str) -> dict:
     shapes = [("config1 block 2 [64x8, 512x4096, 16]", (B, 512, H, HD), (B, 4096, H, HD), wsi),
               ("config1 block 3 [64x8, 4096x512, 16]", (B, 4096, H, HD), (B, 512, H, HD), markers),
               ("bag [1x8, 4096, 64]", (1, 4096, 8, 64), (1, 4096, 8, 64), None)]
-    k4 = {}
+    k3, k4 = {}, {}
     for label, qs, ks, mask in shapes:
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v, do = randn(qs, dtype), randn(ks, dtype), randn(ks, dtype), randn(qs, dtype)
+            k3[f"{label} {name}"] = cuda_ms(lambda: attention_fwd(q, k, v, mask))
             o, m, l = attention_fwd(q, k, v, mask)
             dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
             k4[f"{label} {name}"] = cuda_ms(lambda: attention_bwd(q, k, v, do, m, l, dsum, mask))
             del q, k, v, do, o, m, l, dsum
-    return {"tree": tree, "card": _card(), "k4_ms": k4, "window_ms": _window_ms(np, torch, rng, dev)}
+    vit = (32, 257, 16, 64)
+    q, k, v = randn(vit, torch.float32), randn(vit, torch.float32), randn(vit, torch.float32)
+    k3["ViT [32x16, 257, 64] f32"] = cuda_ms(lambda: attention_fwd(q, k, v))
+    return {"tree": tree, "card": _card(), "k3_ms": k3, "k4_ms": k4,
+            "window_ms": _window_ms(np, torch, rng, dev)}
 
 
 def _window_ms(np, torch, rng, dev) -> float:
@@ -132,7 +139,7 @@ def _window_ms(np, torch, rng, dev) -> float:
         channels[f"{grp}=mask"] = (torch.rand((B, 1, dim), generator=gen, device=dev) > 0.2).float()
     window = {"channels": channels, "masks": masks,
               "label": torch.as_tensor(np.arange(B) % 2, dtype=torch.int64, device=dev)}
-    log_dir = tempfile.mkdtemp(prefix="k4_turns_")
+    log_dir = tempfile.mkdtemp(prefix="attention_turns_")
     tr = SurvivalTrainer(Configs(ec, mc), log_dir, device=dev)
     model = ModelFactory.create_model(mc, seed=0, device=dev)
     opt = make_optimizer(ec.optimizer, ec.weight_decay, model.parameters(), ec.lr)
@@ -170,9 +177,11 @@ def main(argv=None) -> int:
         results.setdefault(args.trees[i], []).append(json.loads(line))
     for tree, runs in results.items():
         print(f"== {tree} ({runs[0]['card']}), {len(runs)} turns: median ms")
-        for label in runs[0]["k4_ms"]:
-            vals = sorted(r["k4_ms"][label] for r in runs)
-            print(f"  K4 {label}: {vals[len(vals) // 2]:.4f} (turns {', '.join(f'{v:.4f}' for v in vals)})")
+        for kernel in ("k3", "k4"):
+            for label in runs[0][f"{kernel}_ms"]:
+                vals = sorted(r[f"{kernel}_ms"][label] for r in runs)
+                print(f"  {kernel.upper()} {label}: {vals[len(vals) // 2]:.4f} "
+                      f"(turns {', '.join(f'{v:.4f}' for v in vals)})")
         vals = sorted(r["window_ms"] for r in runs)
         print(f"  mfmf_config1 64-case training window: {vals[len(vals) // 2]:.2f} "
               f"(turns {', '.join(f'{v:.2f}' for v in vals)})")
