@@ -8,7 +8,7 @@ nothing of JAX or of the JAX package.  It does what the JAX package does:
   rebuild), with hand-written CUDA kernels for the combined similarity
   (``ops.similarity_kernel``) and the running-top-k KNN
   (``ops.knn_kernel``);
-- ``data.tma_extraction``: ViT-L/16 TMA feature extraction, whose
+- ``data.tma_extraction``: ViT TMA feature extraction (UNI, UNI2-h), whose
   attention runs the fused attention kernel (``ops.attention_kernel``);
 - ``models``, ``train``: the survival zoo (all 24 factory keys) with its
   trainer, alignment pretraining and the WSI VAE; MFMF's training runs the

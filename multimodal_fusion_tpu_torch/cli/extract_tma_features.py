@@ -3,14 +3,17 @@
 ``alignment/tma_feature_extraction/extract_tma_features_uni.py:322-438``).
 
 Walks ``<input_dir>/<marker>/*.png``, patches each core (256/stride 128,
-optional white filter), extracts ViT-L/16 CLS features, writes
-``tma_uni_tile_1024_<marker>.npz`` keyed by core stem.
+optional white filter), extracts CLS features with ``--model``'s encoder
+and writes them keyed by core stem: UNI's ViT-L/16 (``uni``, the default)
+to ``tma_uni_tile_1024_<marker>.npz``, UNI2-h (``uni2_h``) to
+``tma_uni2h_tile_1536_<marker>.npz``.
 
     python -m multimodal_fusion_tpu_torch.cli.extract_tma_features \
-        --input_dir CORES --output_dir OUT [--device cpu]
+        --input_dir CORES --output_dir OUT [--model uni2_h] [--device cpu]
 
-Pretrained UNI weights load from a converted numpy state dict via
-``--weights``; without weights the encoder runs from a seeded random init.
+Pretrained weights load from the model's timm state dict converted to
+numpy via ``--weights``; without weights the encoder runs from a seeded
+random init.
 Runs on the CUDA card unless ``--device cpu`` is given.  PIL is imported
 inside ``main`` only, to decode the PNGs.  ``--mesh_data N`` shards each
 batch over the N ranks of a launch (every rank decodes the cores, rank 0
@@ -36,7 +39,17 @@ from multimodal_fusion_tpu_torch.data.tma_extraction import (
 )
 from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.parallel.mesh import barrier, make_mesh
-from multimodal_fusion_tpu_torch.models.vit import load_timm_vit_weights, vit_large_16
+from multimodal_fusion_tpu_torch.models.vit import (
+    load_timm_vit_weights,
+    vit_large_16,
+    vit_uni2_h,
+)
+
+# --model -> (its builder, the output file of a marker, named by the model
+# and its width); the builders are looked up when called, so a test can
+# swap the module's ``vit_large_16`` / ``vit_uni2_h`` for a smaller model
+MODELS = {"uni": (lambda g: vit_large_16(g), "tma_uni_tile_1024_{marker}.npz"),
+          "uni2_h": (lambda g: vit_uni2_h(g), "tma_uni2h_tile_1536_{marker}.npz")}
 
 
 def build_parser():
@@ -45,8 +58,10 @@ def build_parser():
                    help="directory with <marker>/ subdirs of core PNGs")
     p.add_argument("--output_dir", type=str, required=True)
     p.add_argument("--markers", type=str, nargs="+", default=list(TMA_MARKERS))
+    p.add_argument("--model", type=str, choices=sorted(MODELS), default="uni",
+                   help="uni: UNI's ViT-L/16; uni2_h: UNI2-h (1536-d ViT/14, SwiGLU, registers)")
     p.add_argument("--weights", type=str, default=None,
-                   help="npz of timm UNI state dict (converted offline)")
+                   help="npz of the model's timm state dict (converted offline)")
     p.add_argument("--patch_size", type=int, default=256)
     p.add_argument("--stride", type=int, default=128)
     p.add_argument("--white_threshold", type=float, default=None)
@@ -71,7 +86,8 @@ def main(argv=None):
     from PIL import Image
 
     dev = resolve_device(args.device) if mesh is None else mesh.device
-    model = vit_large_16(torch.Generator(device=dev).manual_seed(args.seed))
+    build, output_name = MODELS[args.model]
+    model = build(torch.Generator(device=dev).manual_seed(args.seed))
     if args.weights:
         state = dict(np.load(args.weights))
         n = load_timm_vit_weights(model, state)
@@ -110,7 +126,7 @@ def main(argv=None):
             stream(), extractor, args.patch_size, args.stride,
             args.white_threshold, args.min_content_ratio,
         )
-        out_path = out_dir / f"tma_uni_tile_1024_{marker}.npz"
+        out_path = out_dir / output_name.format(marker=marker)
         if is_main:
             save_marker_npz(out_path, feats)
             print(f"{marker}: {len(feats)} cores -> {out_path}")

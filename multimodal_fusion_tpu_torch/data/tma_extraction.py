@@ -9,8 +9,8 @@ Counterpart of ``multimodal_fusion_tpu.data.tma_extraction`` (reference:
 - optional white-region filter: a patch is kept when its non-white content
   ratio >= min_content_ratio, white meaning all RGB >= white_threshold*255;
 - features are extracted in fixed-size batches by the ViT encoder
-  (``models.vit``) and written per marker as one [N_patches, 1024] entry
-  per core.
+  (``models.vit``: UNI or UNI2-h) and written per marker as one
+  [N_patches, embed_dim] entry per core.
 
 The encoder runs on the CUDA card unless the caller passes
 ``device="cpu"``; on the card its attention is the fused kernel K3.

@@ -24,6 +24,9 @@ The spans and counters the port records:
   one wait for the device) inside it; counters ``extract.cores``,
   ``extract.waits``, ``extract.rows`` (rows the encoder ran, padding
   included) and ``extract.patches`` (the real rows among them);
+- ``models/vit.py``: ``vit.attention`` and ``vit.mlp`` tiling each block
+  of the encoder; counters ``vit.batches`` (one a forward) and
+  ``vit.tokens`` (the forward's rows times its tokens);
 - :class:`StageTimer`'s stages, under their own names.
 
 The reference's opt-in wall-clock stage profiler

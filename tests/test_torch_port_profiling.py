@@ -229,10 +229,22 @@ def test_extraction_is_the_same_traced_and_counts_exactly():
     assert off.keys() == on.keys() and all(np.array_equal(off[k], on[k]) for k in off)
     patches = [9, 4, 1, 16, 1]
     rows = [4 * -(-n // 4) for n in patches]  # batches of 4, the last one padded
+    # the encoder's counters: a batch a forward, 4 patch tokens and the
+    # class token a row
     want = {"extract.cores": 5, "extract.waits": 5, "extract.rows": sum(rows),
-            "extract.patches": sum(patches)}
+            "extract.patches": sum(patches), "vit.batches": sum(rows) // 4,
+            "vit.tokens": 5 * sum(rows)}
     assert profiling.counters() == want == counted_off
     recs = profiling.records()
-    assert [r[0] for r in recs] == CORE * 5
-    for i in range(0, len(recs), 4):
-        assert recs[i][3] is None and all(r[3] == i for r in recs[i + 1 : i + 4])
+    # each core: cut, stage, the encoder's blocks (vit.attention, vit.mlp)
+    # for each of its batches, then the one wait
+    blocks = ["vit.attention", "vit.mlp"] * TINY_VIT["depth"]
+    assert [r[0] for r in recs] == [name for r in rows
+                                    for name in CORE[:3] + blocks * (r // 4) + CORE[3:]]
+    core = None
+    for i, rec in enumerate(recs):
+        if rec[0] == "extract.core":
+            core = i
+            assert rec[3] is None
+        else:
+            assert rec[3] == core
