@@ -27,22 +27,34 @@
 // ops/attention_kernel.py):
 //
 // general (both sides > NARROW; MFMF config1's blocks 2 and 3, the bag
-//   shape): two launches, dkdv (a block owns 64 keys, 32 at hd 128 in
-//   float32, and walks every q tile) and dq (a block owns 64 q rows and
-//   walks the key tiles), each recomputing s and dp.  The streamed q/do or
-//   k/v tiles pass through a two-slot ring of 16-byte cp.async copies (tile
-//   j+1 copies while tile j computes, one barrier a tile).  Keys go in runs
-//   of 16: where a case has a valid key, a run without one is skipped (its
-//   p is 0 in float32), dq streaming tiles gathered from the list of runs
-//   with work and dkdv spreading its runs with work over all its threads.
-//   float32: each owned row's 16-dim slices of q and do (k and v) live in
+//   shape).  The streamed tiles pass through a two-slot ring of 16-byte
+//   cp.async copies (tile j+1 copies while tile j computes).  Keys go in
+//   runs of 16: where a case has a valid key, a run without one is skipped
+//   (its p is 0 in float32), the kernels streaming or owning rows gathered
+//   from the list of runs with work.
+//   float32, one pass (where the short side's gradient fits OP_ACC bytes,
+//   hd <= 64: config1's blocks, whose short side is 512 q rows or 512
+//   keys): each (row, key) pair's s, dp, p, pd and ds are formed once and
+//   feed all three gradients, 5 products where 5 are the least.  A block
+//   owns keys and streams q rows: where Tk >= Tq a span of keys against
+//   every q row (dk and dv complete in place, dq summed over the spans),
+//   else every key against a span of q rows (dq complete in the block, dk
+//   and dv summed over the spans).  The sum over spans goes through float32
+//   partials that a second launch adds in span order (see OnePass).
+//   float32 otherwise (the bag shape): two launches, dkdv (a block owns 64
+//   keys, 32 at hd 128, and walks every q tile) and dq (a block owns 64 q
+//   rows and walks the key tiles), each recomputing s and dp, 7 products in
+//   all.  Each owned row's 16-dim slices of q and do (k and v) live in
 //   registers (one row a thread at hd 16, two wider), and the thread's
 //   outputs sum over its interleaved share of the streamed columns, 8
 //   float4 shared loads per column and row pair for 64 FMAs a row; a fixed
-//   butterfly adds the shares (see GenF32).
-//   bf16: mma.sync m16n8k16 for all five products, fragments by ldmatrix /
-//   ldmatrix.trans as K3's bf16 route; ds and pd are re-packed in registers
-//   as A operands after their bf16 rounding.  p comes from the saved m and
+//   butterfly adds the shares (see GenF32).  dq streams tiles gathered from
+//   the list of runs with work; dkdv spreads its runs with work over all its
+//   threads.
+//   bf16: two launches as the float32 pair, mma.sync m16n8k16 for all five
+//   products, fragments by ldmatrix / ldmatrix.trans as K3's bf16 route; ds
+//   and pd are re-packed in registers as A operands after their bf16
+//   rounding.  p comes from the saved m and
 //   1/l through the SFU's exp2 (grad_fast).  hd is instantiated at 16, 32,
 //   64 and 128 (hd 16 unpadded).
 // narrow_k (Tk <= NARROW; MFMF config0's block 3, 4096 q rows against 5
@@ -65,10 +77,10 @@
 // config0's shapes (hd = 16, Tq or Tk = 5) the bytes of the long side bound
 // it: the narrow routes read each long-side row once.  At config1's general
 // shapes ([512 x 4096] and [4096 x 512], hd 16) the float32 operations
-// bound it (67 TFLOP/s without tensor cores); the general route spends 7
-// products where 5 are the least, and at hd 16 the exp and the masks of each
-// score cost about a third of its FMAs.  Not yet done: wgmma and an
-// error-compensated 3xTF32 float32 path.
+// bound it (67 TFLOP/s without tensor cores); the one-pass route spends the
+// 5 products and one exp and mask a pair, where the pair of launches spent 7
+// and two.  Not yet done: wgmma and an error-compensated 3xTF32 float32
+// path.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -135,13 +147,13 @@ __device__ __forceinline__ T* out_row(void* out, const BwdParams& p, int b, int 
 
 // ------------------------------------------------------- general route
 //
-// Two launches.  dkdv: a block owns GR keys (x1 = k, x2 = v) and walks
-// every q tile (y1 = q, y2 = do), summing dk += ds y1 and dv += pd y2.  dq:
-// a block owns GR q rows (x1 = q, x2 = do) and walks the key tiles (y1 = k,
-// y2 = v), summing dq += ds y1.  s = x1 . y1 and dp = x2 . y2 either way:
-// both launches recompute them (7 products in all where 5 are the least);
-// one launch writing dq partials per key tile would need B*H*(Tk/64)*Tq*hd
-// floats of workspace, 1 GiB at MFMF config1's block 2.
+// The pair of launches (bf16, and float32 where the short side is long
+// too).  dkdv: a block owns GR keys (x1 = k, x2 = v) and walks every q tile
+// (y1 = q, y2 = do), summing dk += ds y1 and dv += pd y2.  dq: a block owns
+// GR q rows (x1 = q, x2 = do) and walks the key tiles (y1 = k, y2 = v),
+// summing dq += ds y1.  s = x1 . y1 and dp = x2 . y2 either way: both
+// launches recompute them.  The float32 one-pass route below forms them
+// once.
 //
 // Skipping: for a case with at least one valid key, a user-masked key has
 // p = exp(-1e9 - m) / l == 0 exactly in float32 (m is at least that valid
@@ -616,6 +628,324 @@ __global__ void __launch_bounds__(NT, GenF32<HD>::MINB) attn_bwd_dq_f32_kernel(c
   for (int i = 0; i < I; ++i) {
     const int row = q0 + rg + RG * i;
     if (row < p.Tq) store_groups<L>(out_row<float>(p.dq, p, b, h, p.Tq, row), acc[i], s, cg, CG, p.hd);
+  }
+}
+
+// ------------------------------------------ general route, float32, one pass
+//
+// A block owns keys (x1 = k, x2 = v in registers, as the pair's dkdv) and
+// streams q rows (y1 = q, y2 = do), and every (row, key) pair's s, dp, p, pd
+// and ds are formed once.  Where Tk >= Tq (MFMF config1's block 2) a block
+// takes a span of SPAN keys against every q row: its keys' dk and dv are
+// complete in place, and dq is summed over the spans.  Where Tq > Tk (block
+// 3) a block takes every key against a span of QSPAN q rows: its rows' dq
+// are complete in the block, and dk and dv are summed over the spans.  The
+// block's keys are its span's runs with work (block 3: all the keys'),
+// gathered into tiles of GR.  For each streamed tile of C q rows each
+// thread forms its key's pairs with its interleaved share of the columns
+// (grad_fast, as the pair does), adds dk += ds q and dv += pd do in
+// registers and writes ds into a shared [GR][C] tile; after a barrier the
+// block forms dq += ds^T k for the C rows from shared memory, a small
+// product summed over the tile's GR keys in order, each thread owning R
+// rows by 4 dims of the block's dq sums [rows][HD] in shared memory.  At the
+// end of a key tile a fixed butterfly adds the column groups' shares of dk
+// and dv.  The side summed over spans goes to the workspace as the span's
+// partial (block 3: dk and dv of the listed keys, with a flag a run of keys
+// written by the first span, so the other keys read 0), and
+// attn_bwd_reduce_kernel adds the partials in span order.  Every sum has a
+// fixed order: no atomics, bit-identical launches.  Two launches a call, the
+// second even for one span.  The masks and the all-masked case work as in
+// the pair: a masked key's cs = 0 gives ds = 0, an all-masked case lists
+// every run below Tk and its uniform p carries dv.
+
+constexpr int SPAN = 512;            // keys (Tk >= Tq) or at most q rows (Tq > Tk) a block
+constexpr int OP_ACC = 64 * 1024;    // bytes: the short side's float32 gradient at most
+constexpr int OP_RUNS = SPAN / SUB;  // key runs a block lists
+static_assert(OP_ACC / (2 * 16 * 4) <= SPAN, "OnePass: the short side's runs outgrow the list");
+
+// whether the shape takes the one-pass route: hd at most 64, both sides
+// non-empty, and the short side's gradient (dq, or dk and dv) within OP_ACC
+// bytes; else the pair
+inline bool one_pass(int Tq, int Tk, int hd) {
+  const int S = min(Tq, Tk), no = Tk >= Tq ? 1 : 2;
+  return narrow_hd(hd) <= 64 && S > 0 &&
+         static_cast<long long>(S) * narrow_hd(hd) * no * sizeof(float) <= OP_ACC;
+}
+
+// q rows a span where Tq > Tk: the block's dq sums hold OP_ACC / 2 bytes
+constexpr int one_pass_qspan(int HD) {
+  return SPAN < OP_ACC / 2 / (HD * 4) ? SPAN : OP_ACC / 2 / (HD * 4);
+}
+
+inline int one_pass_spans(int Tq, int Tk, int hd) {
+  const int span = Tk >= Tq ? SPAN : one_pass_qspan(narrow_hd(hd));
+  return (max(Tq, Tk) + span - 1) / span;
+}
+
+// the workspace: the spans' partials [B*H][spans][dq: Tq | dk, dv: 2][rows]
+// [HD] float32, then where Tq > Tk a flag a run of keys [B*H][runs] (int)
+inline long long one_pass_floats(int B, int H, int Tq, int Tk, int hd) {
+  return static_cast<long long>(B) * H * one_pass_spans(Tq, Tk, hd) * (Tk >= Tq ? Tq : 2 * Tk) * narrow_hd(hd);
+}
+inline long long one_pass_bytes(int B, int H, int Tq, int Tk, int hd) {
+  const long long flags = Tk >= Tq ? 0 : static_cast<long long>(B) * H * ((Tk + SUB - 1) / SUB);
+  return sizeof(float) * one_pass_floats(B, H, Tq, Tk, hd) + sizeof(int) * flags;
+}
+
+template <int HD>
+struct OnePass {
+  static constexpr int L = HD / 16;               // lanes per key
+  static constexpr int I = HD == 16 ? 1 : 2;      // keys per thread
+  static constexpr int GR = 64;                   // keys per tile
+  static constexpr int RG = GR / I;               // row groups: keys rg + RG * i
+  static constexpr int CG = NT * I / (GR * L);    // column groups: q rows cg + CG * j
+  static constexpr int C = HD == 16 ? 64 : 32;    // q rows per streamed tile
+  static constexpr int LD = GenF32<HD>::LD;       // ring row stride (floats)
+  static constexpr int LDW = C + 4;               // ds tile row stride: float4 rows
+  static constexpr int QSPAN = one_pass_qspan(HD);
+  // dq's product: a thread owns R q rows by 4 dims, CH times
+  static constexpr int R = C * HD / (4 * NT) < 4 ? C * HD / (4 * NT) : 4;
+  static constexpr int CH = C * HD / (4 * R * NT);
+  // hd 16: 3 blocks an SM (the shared memory allows 3 at 512 q rows)
+  static constexpr int MINB = HD == 16 ? 3 : 1;
+  static constexpr size_t fixed = sizeof(float) * (2 * STAGES * C * LD + GR * (HD + LDW));
+  static size_t smem(int rows) { return fixed + sizeof(float) * rows * HD; }
+  static_assert(CG >= 1 && CG * GR * L == NT * I, "OnePass: threads do not tile the keys");
+  static_assert(R >= 1 && CH * R * 4 * NT == C * HD, "OnePass: threads do not tile dq's product");
+  static_assert(GR % SUB == 0 && SPAN % GR == 0, "OnePass: key tiles are whole runs");
+};
+
+// R (2 or 4) consecutive floats of a shared row, 8R-byte aligned
+template <int R>
+__device__ __forceinline__ void load_vec(float (&w)[R], const float* src) {
+  static_assert(R == 2 || R == 4, "load_vec: two or four floats");
+  if constexpr (R == 4) {
+    const float4 v = *reinterpret_cast<const float4*>(src);
+    w[0] = v.x;
+    w[1] = v.y;
+    w[2] = v.z;
+    w[3] = v.w;
+  } else {
+    const float2 v = *reinterpret_cast<const float2*>(src);
+    w[0] = v.x;
+    w[1] = v.y;
+  }
+}
+
+template <int HD>
+__global__ void __launch_bounds__(NT, OnePass<HD>::MINB) attn_bwd_onepass_f32_kernel(const BwdParams p) {
+  using O = OnePass<HD>;
+  constexpr int L = O::L, I = O::I, GR = O::GR, RG = O::RG, CG = O::CG, C = O::C, LD = O::LD;
+  constexpr int LDW = O::LDW, R = O::R, TILE = C * LD;
+  extern __shared__ float4 smem_f4[];
+  float* Qs = reinterpret_cast<float*>(smem_f4);  // [STAGES][C][LD] q tiles
+  float* Ds = Qs + STAGES * TILE;                 // do tiles
+  float* Ks = Ds + STAGES * TILE;                 // [GR][HD] the key tile's k, for dq
+  float* Ws = Ks + GR * HD;                       // [GR][LDW] the tile's ds
+  float* dqs = Ws + GR * LDW;                     // [rows][HD] the block's dq sums
+  __shared__ RowCols<C> cols;
+  __shared__ int runs[OP_RUNS];
+  __shared__ int wsum[NT / 32];
+
+  const int tid = threadIdx.x;
+  const int s = tid % L;          // this lane's slice of its keys
+  const int cg = (tid / L) % CG;  // its column group
+  const int rg = tid / (L * CG);  // its row group
+  const int bh = blockIdx.x;
+  const int b = bh / p.H;
+  const int h = bh - b * p.H;
+  const int span = blockIdx.y;
+  const uint32_t seed = case_seed(p.seeds, p.seed, b);
+  const float* qg = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kg = static_cast<const float*>(p.k) + b * p.k_sb + h * p.k_sh;
+  const float* vg = static_cast<const float*>(p.v) + b * p.v_sb + h * p.v_sh;
+  const float* dg = static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const long long stat0 = static_cast<long long>(bh) * p.Tq;
+  const float sl = p.scale * kLog2e;
+  const bool kl = p.Tk >= p.Tq;  // spans of keys (dq summed over them), else of q rows (dk, dv)
+  const int k0 = kl ? span * SPAN : 0;
+  const int kn = kl ? min(SPAN, p.Tk - k0) : p.Tk;
+  const int q0 = kl ? 0 : span * O::QSPAN;
+  const int qn = kl ? p.Tq : min(O::QSPAN, p.Tq - q0);
+  const bool has_valid = case_has_valid(p.mask, p.mask_sb, p.Tk, b);
+  float* part = p.part + static_cast<long long>(bh) * gridDim.y * (kl ? p.Tq : 2 * p.Tk) * HD;
+
+  for (int i = tid; i < qn * HD; i += NT) dqs[i] = 0.f;
+  const int run0 = k0 / SUB;
+  const int n_runs = (kn + SUB - 1) / SUB;
+  const int n = list_runs(p.mask, p.mask_sb, p.Tk, b, run0, n_runs, has_valid, runs, wsum);
+  if (kl) {  // the span's keys in runs without work: dk = dv = 0
+    for (int r = 0, e = 0; r < n_runs; ++r) {
+      if (e < n && runs[e] == run0 + r) {
+        ++e;
+        continue;
+      }
+      zero_rows<float>(p.dk, p, b, h, p.Tk, (run0 + r) * SUB, SUB);
+      zero_rows<float>(p.dv, p, b, h, p.Tk, (run0 + r) * SUB, SUB);
+    }
+  } else if (span == 0) {  // which runs the spans' partials hold
+    int* flags = reinterpret_cast<int*>(p.part + static_cast<long long>(gridDim.x) * gridDim.y * 2 * p.Tk * HD);
+    for (int r = tid; r < n_runs; r += NT) {
+      bool on = false;
+      for (int e = 0; e < n; ++e) on |= runs[e] == r;
+      flags[static_cast<long long>(bh) * n_runs + r] = on;
+    }
+  }
+  const int n_lt = (n * SUB + GR - 1) / GR;
+  const int n_st = (qn + C - 1) / C;
+
+  for (int lt = 0; lt < n_lt; ++lt) {
+    copy_run_tile<float, HD, HD, GR>(Ks, kg, p.k_st, runs, lt * (GR / SUB), n, p.Tk, p.hd);
+    auto fill = [&](int t) {  // q tile t into its ring slot
+      const int slot = t % STAGES;
+      copy_tile<float, HD, LD, C>(Qs + slot * TILE, qg, p.q_st, q0 + t * C, q0 + qn, p.hd);
+      copy_tile<float, HD, LD, C>(Ds + slot * TILE, dg, p.do_st, q0 + t * C, q0 + qn, p.hd);
+    };
+    // the tile's rows' m * log2(e), 1/l and dsum, read into registers of
+    // threads tid < C with the tile's copies and stored after its products
+    float nm2 = 0.f, nr = 0.f, nd = 0.f;
+    auto fetch = [&](int t) {
+      const int c = q0 + t * C + tid;
+      if (tid < C) {
+        const bool in = c < q0 + qn;
+        nm2 = in ? p.m[stat0 + c] * kLog2e : 0.f;
+        nr = in ? 1.f / p.l[stat0 + c] : 0.f;
+        nd = in ? p.dsum[stat0 + c] : 0.f;
+      }
+    };
+    auto put = [&](int t) {
+      if (tid < C) {
+        cols.m2[t % STAGES][tid] = nm2;
+        cols.r[t % STAGES][tid] = nr;
+        cols.d[t % STAGES][tid] = nd;
+      }
+    };
+    fill(0);
+    cp_async_commit();
+    fetch(0);
+    put(0);
+
+    // this thread's keys: k and v slices, their ds and pd factors (zero past the list)
+    float xa[I][16], xb[I][16], cs[I], pf[I];
+    int gk[I];
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      gk[i] = run_key(runs, lt * (GR / SUB), n, rg + RG * i, p.Tk);
+#pragma unroll
+      for (int d = 0; d < 16; ++d) xa[i][d] = xb[i][d] = 0.f;
+      cs[i] = pf[i] = 0.f;
+      if (gk[i] < p.Tk) {
+        load_groups<L>(xa[i], kg + gk[i] * p.k_st, s, p.hd);
+        load_groups<L>(xb[i], vg + gk[i] * p.v_st, s, p.hd);
+        const int8_t st = key_state(p.mask, p.mask_sb, p.Tk, b, gk[i]);
+        cs[i] = key_cs(p, st);
+        pf[i] = key_pf(st, has_valid);
+      }
+    }
+    float acc1[I][16], acc2[I][16];  // dk, dv
+#pragma unroll
+    for (int i = 0; i < I; ++i)
+#pragma unroll
+      for (int d = 0; d < 16; ++d) acc1[i][d] = acc2[i][d] = 0.f;
+
+    for (int t = 0; t < n_st; ++t) {
+      cp_async_wait<0>();  // q tile t (and the key tile) landed for this thread
+      __syncthreads();     // ... for every thread; the ds tile and slot t+1 are free
+      if (t + 1 < n_st) {
+        fill(t + 1);
+        fetch(t + 1);
+      }
+      cp_async_commit();
+      const int slot = t % STAGES;
+      const float* Qt = Qs + slot * TILE;
+      const float* Dt = Ds + slot * TILE;
+#pragma unroll 2
+      for (int c = cg; c < C; c += CG) {
+        float ya[16], yb[16];
+        smem_groups<L>(ya, Qt + c * LD, s);
+        smem_groups<L>(yb, Dt + c * LD, s);
+        const float m2 = cols.m2[slot][c], r = cols.r[slot][c], dsum = cols.d[slot][c];
+#pragma unroll
+        for (int i = 0; i < I; ++i) {
+          const float sv = lane_sum<L>(dot_slice(xa[i], ya));
+          const float dpv = lane_sum<L>(dot_slice(xb[i], yb));
+          float ds, pd;
+          grad_fast<float>(p, sl, sv, dpv, m2, r, dsum, cs[i], pf[i], seed, h, q0 + t * C + c, gk[i], ds, pd);
+#pragma unroll
+          for (int d = 0; d < 16; ++d) {
+            acc1[i][d] = fmaf(ds, ya[d], acc1[i][d]);
+            acc2[i][d] = fmaf(pd, yb[d], acc2[i][d]);
+          }
+          if (s == 0) Ws[(rg + RG * i) * LDW + c] = ds;
+        }
+      }
+      if (t + 1 < n_st) put(t + 1);
+      __syncthreads();  // the ds tile is whole
+
+      // dq of the tile's rows c0 .. c0 + R - 1, dims d0 .. d0 + 3, summed
+      // over the tile's keys in order
+#pragma unroll
+      for (int ch = 0; ch < O::CH; ++ch) {
+        const int idx = tid + NT * ch;
+        const int d0 = (idx % (HD / 4)) * 4;
+        const int c0 = (idx / (HD / 4)) * R;
+        const float* W = Ws + c0;
+        const float* X = Ks + d0;
+        float a[R][4];
+#pragma unroll
+        for (int j = 0; j < R; ++j) a[j][0] = a[j][1] = a[j][2] = a[j][3] = 0.f;
+#pragma unroll 4
+        for (int kk = 0; kk < GR; ++kk) {
+          float w[R];
+          load_vec<R>(w, W + kk * LDW);
+          const float4 x = *reinterpret_cast<const float4*>(X + kk * HD);
+#pragma unroll
+          for (int j = 0; j < R; ++j) {
+            a[j][0] = fmaf(w[j], x.x, a[j][0]);
+            a[j][1] = fmaf(w[j], x.y, a[j][1]);
+            a[j][2] = fmaf(w[j], x.z, a[j][2]);
+            a[j][3] = fmaf(w[j], x.w, a[j][3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          const int row = t * C + c0 + j;
+          if (row >= qn) continue;
+          float4* o = reinterpret_cast<float4*>(dqs + row * HD + d0);
+          float4 v = *o;
+          v.x += a[j][0];
+          v.y += a[j][1];
+          v.z += a[j][2];
+          v.w += a[j][3];
+          *o = v;
+        }
+      }
+    }
+    cp_async_wait<0>();  // no copy outlives the tile
+
+    // the tile's dk and dv: over the block's q rows; where Tq > Tk the span's partial
+    sum_groups<L, I>(acc1, CG);
+    sum_groups<L, I>(acc2, CG);
+#pragma unroll
+    for (int i = 0; i < I; ++i) {
+      if (gk[i] >= p.Tk) continue;
+      float* dk = kl ? out_row<float>(p.dk, p, b, h, p.Tk, gk[i])
+                     : part + ((static_cast<long long>(span) * 2) * p.Tk + gk[i]) * HD;
+      float* dv = kl ? out_row<float>(p.dv, p, b, h, p.Tk, gk[i]) : dk + static_cast<long long>(p.Tk) * HD;
+      store_groups<L>(dk, acc1[i], s, cg, CG, p.hd);
+      store_groups<L>(dv, acc2[i], s, cg, CG, p.hd);
+    }
+    __syncthreads();  // the key tile, the ring and the factors are free for the next tile
+  }
+
+  // the block's dq: over its keys; where Tk >= Tq the span's partial
+  __syncthreads();
+  if (kl) {
+    float4* out = reinterpret_cast<float4*>(part + static_cast<long long>(span) * p.Tq * HD);
+    for (int i = tid; i < qn * HD / 4; i += NT) out[i] = reinterpret_cast<const float4*>(dqs)[i];
+  } else {
+    for (int i = tid; i < qn * p.hd; i += NT)
+      out_row<float>(p.dq, p, b, h, p.Tq, q0 + i / p.hd)[i % p.hd] = dqs[(i / p.hd) * HD + i % p.hd];
   }
 }
 
@@ -1163,12 +1493,14 @@ __global__ void __launch_bounds__(NT) attn_bwd_narrow_q_kernel(const BwdParams p
   });
 }
 
-// The narrow routes' per-block partials [B*H][n_chunks][n_out][NARROW][HD]
-// summed over the chunks in order: outputs [rows, hd] of each (batch, head)
-// into out[0] (and out[1] when n_out is 2).
+// Per-block partials [B*H][n_chunks][n_out][cap][HD] summed over the chunks
+// in order: outputs [rows, hd] of each (batch, head) into out[0] (and
+// out[1] when n_out is 2).  The narrow routes' chunks (cap NARROW) and the
+// one-pass route's spans (cap = rows; ``flags``, where given, one a run of
+// SUB rows: a row of a run without a flag is 0 and has no partials).
 template <typename T, int HD>
-__global__ void attn_bwd_reduce_kernel(const BwdParams p, int n_chunks, int n_out, int rows, void* out0,
-                                     void* out1) {
+__global__ void attn_bwd_reduce_kernel(const BwdParams p, int n_chunks, int n_out, int rows, int cap,
+                                     const int* flags, void* out0, void* out1) {
   const long long idx = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   const long long total = static_cast<long long>(p.B) * p.H * n_out * rows * p.hd;
   if (idx >= total) return;
@@ -1178,9 +1510,10 @@ __global__ void attn_bwd_reduce_kernel(const BwdParams p, int n_chunks, int n_ou
   rest /= rows;
   const int which = rest % n_out;
   const int bh = static_cast<int>(rest / n_out);
+  const bool on = flags == nullptr || flags[static_cast<long long>(bh) * ((rows + SUB - 1) / SUB) + row / SUB];
   float a = 0.f;
-  for (int c = 0; c < n_chunks; ++c)
-    a += p.part[(((static_cast<long long>(bh) * n_chunks + c) * n_out + which) * NARROW + row) * HD + d];
+  for (int c = 0; c < (on ? n_chunks : 0); ++c)
+    a += p.part[(((static_cast<long long>(bh) * n_chunks + c) * n_out + which) * cap + row) * HD + d];
   const int b = bh / p.H;
   store(out_row<T>(which ? out1 : out0, p, b, bh - b * p.H, rows, row) + d, a);
 }
@@ -1208,8 +1541,30 @@ int launch_narrow(int route, const BwdParams& p, cudaStream_t stream) {
   const long long total = static_cast<long long>(p.B) * p.H * n_out * rows * p.hd;
   if (total > 0) {
     attn_bwd_reduce_kernel<T, HD><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
-        p, n_chunks, n_out, rows, narrow_k ? p.dk : p.dq, p.dv);
+        p, n_chunks, n_out, rows, NARROW, nullptr, narrow_k ? p.dk : p.dq, p.dv);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the float32 one-pass route's two launches: the spans, then their sum
+template <int HD>
+int launch_one_pass(const BwdParams& p, cudaStream_t stream) {
+  using O = OnePass<HD>;
+  if (p.part == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  // the opt-in once, for the most dq sums a block holds
+  cudaError_t err = allow_smem<attn_bwd_onepass_f32_kernel<HD>>(O::fixed + OP_ACC);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool kl = p.Tk >= p.Tq;
+  const int n_spans = one_pass_spans(p.Tq, p.Tk, HD);
+  attn_bwd_onepass_f32_kernel<HD>
+      <<<dim3(p.B * p.H, n_spans), NT, O::smem(kl ? p.Tq : min(O::QSPAN, p.Tq)), stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int n_out = kl ? 1 : 2, rows = kl ? p.Tq : p.Tk;
+  const int* flags = kl ? nullptr : reinterpret_cast<const int*>(p.part + one_pass_floats(p.B, p.H, p.Tq, p.Tk, HD));
+  const long long total = static_cast<long long>(p.B) * p.H * n_out * rows * p.hd;
+  attn_bwd_reduce_kernel<float, HD><<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(
+      p, n_spans, n_out, rows, rows, flags, kl ? p.dq : p.dk, p.dv);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1232,6 +1587,9 @@ int launch_pair(int rows, size_t smem, const BwdParams& p, cudaStream_t stream) 
 template <typename T, int HD>
 int launch_general(const BwdParams& p, cudaStream_t stream) {
   if constexpr (sizeof(T) == 4) {
+    if constexpr (HD <= 64) {
+      if (one_pass(p.Tq, p.Tk, p.hd)) return launch_one_pass<HD>(p, stream);
+    }
     return launch_pair<attn_bwd_dkdv_f32_kernel<HD>, attn_bwd_dq_f32_kernel<HD>>(GenF32<HD>::GR,
                                                                                  GenF32<HD>::smem, p, stream);
   } else {
@@ -1256,13 +1614,17 @@ int launch_hd(int route, const BwdParams& p, cudaStream_t stream) {
 
 }  // namespace
 
-// Bytes of float32 workspace that mmf_attention_bwd needs on ``route`` (0
-// when none): the narrow routes' per-block partials when the long side is
-// more than one chunk.
-extern "C" long long mmf_attention_bwd_workspace(int route, int B, int H, int Tq, int Tk, int hd) {
+// Bytes of workspace that mmf_attention_bwd needs on ``route`` (0 when
+// none): the narrow routes' float32 per-block partials when the long side is
+// more than one chunk; on the general route the float32 one-pass route's
+// span partials and flags (its only workspace: 0 where the shape keeps the
+// pair).
+extern "C" long long mmf_attention_bwd_workspace(int is_bf16, int route, int B, int H, int Tq, int Tk,
+                                                 int hd) {
+  if (route == kRouteGeneral) return !is_bf16 && one_pass(Tq, Tk, hd) ? one_pass_bytes(B, H, Tq, Tk, hd) : 0;
   const bool narrow_k = route == kRouteNarrowK;
   const long long n_chunks = narrow_chunks(narrow_k ? Tq : Tk, hd);
-  if (route == kRouteGeneral || n_chunks <= 1) return 0;
+  if (n_chunks <= 1) return 0;
   return static_cast<long long>(sizeof(float)) * B * H * n_chunks * (narrow_k ? 2 : 1) * NARROW *
          narrow_hd(hd);
 }
@@ -1274,6 +1636,8 @@ extern "C" long long mmf_attention_bwd_workspace(int route, int B, int H, int Tq
 // contiguous, in the input dtype (is_bf16: bf16, else float32).  route: 0
 // general, 1 narrow_q (Tq <= 16), 2 narrow_k (Tk <= 16).  workspace:
 // mmf_attention_bwd_workspace bytes (null when that is 0).  hd <= 128.
+// Two launches on the general route and on a narrow route of more than one
+// chunk, one on a narrow route of one chunk.
 // Returns cudaGetLastError() after the launches (or the error of the
 // shared-memory opt-in, or cudaErrorInvalidValue for a route the shape does
 // not allow).

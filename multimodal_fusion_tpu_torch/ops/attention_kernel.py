@@ -13,7 +13,12 @@ wrapper calls that launched (one call may be two kernel launches), and
 ``.route_launches`` counts them per route.  The tracer's counter
 ``attention_fwd.run_listed`` (``utils.profiling.count``) counts K3's float32
 ``general`` launches with a key mask: those list the runs of 16 keys that
-hold a valid key and skip the rest.
+hold a valid key and skip the rest.  The tracer's counter
+``attention_bwd.one_pass`` counts K4's float32 ``general`` calls that take
+one pass (each pair of a q row and a key formed once; the kernel chooses it
+by shape, where the short side's gradient fits its shared memory, as at
+mfmf_config1's blocks 2 and 3); the wrapper knows them by their workspace,
+the general route's only one.
 
 Routes (``_route``): where one side is at most ``NARROW`` (16) rows or
 keys, the narrow routes keep that side whole in shared memory and spread
@@ -81,7 +86,6 @@ def _check_route(route: Optional[str], t_q: int, t_k: int, hd: int) -> str:
 
 
 _TAIL = [ctypes.c_float, ctypes.c_float, ctypes.c_uint, ctypes.c_uint, ctypes.c_int, ctypes.c_void_p]
-_WORKSPACE_ARGS = [ctypes.c_int] * 6
 
 
 @functools.cache  # loaded and typed once per process
@@ -92,7 +96,7 @@ def _lib():
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 10 + _TAIL
     )
     fn.restype = ctypes.c_int
-    lib.mmf_attention_fwd_workspace.argtypes = _WORKSPACE_ARGS
+    lib.mmf_attention_fwd_workspace.argtypes = [ctypes.c_int] * 6  # route, B, H, Tq, Tk, hd
     lib.mmf_attention_fwd_workspace.restype = ctypes.c_longlong
     return lib
 
@@ -105,14 +109,15 @@ def _bwd_lib():
         [ctypes.c_int] * 2 + [ctypes.c_void_p] * 13 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 13 + _TAIL
     )
     fn.restype = ctypes.c_int
-    lib.mmf_attention_bwd_workspace.argtypes = _WORKSPACE_ARGS
+    lib.mmf_attention_bwd_workspace.argtypes = [ctypes.c_int] * 7  # is_bf16, route, B, H, Tq, Tk, hd
     lib.mmf_attention_bwd_workspace.restype = ctypes.c_longlong
     return lib
 
 
-def _workspace(size_fn, code, b, heads, t_q, t_k, hd, device):
-    """(float32 workspace kept alive, its pointer) of ``size_fn``'s bytes."""
-    nbytes = int(size_fn(code, b, heads, t_q, t_k, hd))
+def _workspace(size_fn, *args, device):
+    """(float32 workspace kept alive, its pointer) of ``size_fn(*args)``
+    bytes; (None, None) for none."""
+    nbytes = int(size_fn(*args))
     if nbytes == 0:
         return None, None
     ws = torch.empty(nbytes // 4, dtype=torch.float32, device=device)
@@ -211,7 +216,7 @@ def attention_fwd(
     if b * t_q * heads > 0:
         lib = _lib()
         ws, ws_ptr = _workspace(lib.mmf_attention_fwd_workspace, code, b, heads, t_q, t_k, hd,
-                                q.device)
+                                device=q.device)
         err = _cuda.call(
             q.device, lib.mmf_attention_fwd,
             int(q.dtype == torch.bfloat16), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -286,11 +291,12 @@ def attention_bwd(
     kv_mask, mask_ptr, mask_sb = _mask_arg(kv_mask, t_k)
     if b * heads * (t_q + t_k) > 0:
         lib = _bwd_lib()
-        ws, ws_ptr = _workspace(lib.mmf_attention_bwd_workspace, code, b, heads, t_q, t_k, hd,
-                                q.device)
+        is_bf16 = int(q.dtype == torch.bfloat16)
+        ws, ws_ptr = _workspace(lib.mmf_attention_bwd_workspace, is_bf16, code, b, heads, t_q, t_k, hd,
+                                device=q.device)
         err = _cuda.call(
             q.device, lib.mmf_attention_bwd,
-            int(q.dtype == torch.bfloat16), code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            is_bf16, code, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             do.data_ptr(), mask_ptr, seeds_ptr, m.data_ptr(), l.data_ptr(), dsum.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), ws_ptr,
             b, heads, t_q, t_k, hd, *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
@@ -300,6 +306,8 @@ def attention_bwd(
         _cuda.check(err, "attention backward kernel")
         attention_bwd.launches += 1
         attention_bwd.route_launches[route] += 1
+        if route == "general" and ws is not None:
+            profiling.count("attention_bwd.one_pass")
     if unbatched:
         return dq[0], dk[0], dv[0]
     return dq, dk, dv

@@ -499,6 +499,78 @@ def test_attention_bwd_general_hd16_on_config1_masks(cuda, kind, tq, tk, drop, d
     assert not got[1][1:][masked].any() and not got[2][1:][masked].any()
 
 
+def _one_pass_calls(*args, **kwargs):
+    """(K4's outputs, how far ``attention_bwd.one_pass`` moved) of one call."""
+    before = profiling.counters().get("attention_bwd.one_pass", 0)
+    got = attention_bwd(*args, **kwargs)
+    return got, profiling.counters().get("attention_bwd.one_pass", 0) - before
+
+
+# K4's float32 general route takes one pass where the short side's sums fit
+# the block's shared memory (attention_bwd.cu: OnePass): mfmf_config1's
+# blocks 2 (keys long: dq summed over spans of 512 keys) and 3 (q rows long:
+# dk and dv summed), a short side at hd 32 and one at hd 64 at the limit, and
+# long sides of several spans with a ragged last one.
+_ONE_PASS = [  # (hd, b, tq, tk, mask kind)
+    (16, 6, 512, 4096, "wsi"),  # config1 block 2
+    (16, 6, 4096, 512, "buckets"),  # config1 block 3
+    (32, 3, 256, 1100, "scattered"),
+    (64, 3, 1300, 128, "buckets"),  # 64 KB of dk and dv sums: the limit
+]
+
+
+@pytest.mark.parametrize("drop", [False, True], ids=["no_dropout", "per_case_seeds"])
+@pytest.mark.parametrize("hd,b,tq,tk,kind", _ONE_PASS)
+def test_attention_bwd_one_pass(cuda, hd, b, tq, tk, kind, drop):
+    """The one-pass route against the plain version at the file's float32
+    tolerance, case 0 all masked (dq = dk = 0, dv through the uniform p),
+    with and without dropout 0.1 under per-case seeds: a masked key of a
+    live case gets dk = dv = 0 exactly, two launches are bit-identical, and
+    ``attention_bwd.one_pass`` moves by one a call."""
+    rng = np.random.default_rng(tq + tk + hd + drop)
+    mask = _key_mask(rng, kind, b, tk, cuda)
+    dropout = _listing_seeds(rng, b, cuda, drop)
+    args = _bwd_inputs(rng, b, tq, tk, 8 if hd == 16 else 2, hd, torch.float32, cuda, mask, **dropout)
+    assert _route(tq, tk, hd) == "general"
+    got, moved = _one_pass_calls(*args, mask, **dropout)
+    again, moved_again = _one_pass_calls(*args, mask, **dropout)
+    want = plain_fused_attention_bwd(*args, mask, **dropout)
+    torch.cuda.synchronize()
+    assert (moved, moved_again) == (1, 1)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert _rel_l2(g, w) <= 1e-5, (name, _rel_l2(g, w))
+    assert not got[0][0].any() and not got[1][0].any() and got[2][0].abs().max() > 0
+    masked = ~mask[1:]
+    assert not got[1][1:][masked].any() and not got[2][1:][masked].any()
+
+
+@pytest.mark.parametrize(
+    "b,tq,tk,h,hd,dtype",
+    [
+        (1, 4096, 4096, 8, 64, torch.float32),  # the bag shape: both sides long
+        (2, 2048, 600, 2, 16, torch.float32),  # 75 KB of dk and dv sums at hd 16
+        (1, 130, 70, 2, 128, torch.float32),  # hd 128
+        (6, 512, 4096, 8, 16, torch.bfloat16),  # config1's block 2 in bf16
+    ],
+)
+def test_attention_bwd_keeps_the_pair_past_the_one_pass_limit(cuda, b, tq, tk, h, hd, dtype):
+    """Where the short side's sums do not fit, or in bf16, the general route
+    keeps its pair of launches: ``attention_bwd.one_pass`` does not move and
+    the gradients still match the plain version under a ragged mask."""
+    rng = np.random.default_rng(tq + tk + hd)
+    mask = torch.as_tensor(np.arange(tk)[None] < rng.integers(tk // 2, tk + 1, (b, 1)), device=cuda)
+    args = _bwd_inputs(rng, b, tq, tk, h, hd, dtype, cuda, mask)
+    assert _route(tq, tk, hd) == "general"
+    got, moved = _one_pass_calls(*args, mask)
+    want = plain_fused_attention_bwd(*args, mask)
+    assert moved == 0
+    bar = 1e-5 if dtype == torch.float32 else 1e-2
+    for g, w, name in zip(got, want, ("dq", "dk", "dv")):
+        assert _rel_l2(g, w) <= bar, (name, _rel_l2(g, w))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("kind,tq,tk", [("wsi", 512, 4096), ("buckets", 4096, 512)],
                          ids=["block2_wsi", "block3_buckets"])

@@ -15,7 +15,9 @@ from its tree (building that tree's kernels into the tree's own
   markers' bucket mask (9-16 valid of each 64), and at the bag shape [1 x
   8, 4096, 64] with no mask, each in float32 and bf16; K3 also at the ViT's
   shape [32 x 16, 257, 64] with no mask; the inputs come from one numpy
-  seed, so every tree sees the same numbers;
+  seed, so every tree sees the same numbers; beside each K4 time, how far
+  one call moved the tracer's counter ``attention_bwd.one_pass`` (1 where
+  the float32 general route took its one pass; 0 for a tree without it);
 - one 64-case training window of mfmf_config1 (its model at the script's
   width, ``SurvivalTrainer._train_step`` with Adam) on a window held on the
   card, the median of 5 after 2 warm-ups.
@@ -61,6 +63,7 @@ def worker(tree: str) -> dict:
     import torch
 
     from multimodal_fusion_tpu_torch.ops.attention_kernel import attention_bwd, attention_fwd
+    from multimodal_fusion_tpu_torch.utils import profiling
 
     if not torch.cuda.is_available():
         raise SystemExit("attention_turns: needs a CUDA card")
@@ -82,11 +85,16 @@ def worker(tree: str) -> dict:
         e1.synchronize()
         return e0.elapsed_time(e1) / iters
 
+    def one_pass(fn):
+        before = profiling.counters().get("attention_bwd.one_pass", 0)
+        fn()
+        return profiling.counters().get("attention_bwd.one_pass", 0) - before
+
     markers, wsi = _masks(np, torch, rng, dev)
     shapes = [("config1 block 2 [64x8, 512x4096, 16]", (B, 512, H, HD), (B, 4096, H, HD), wsi),
               ("config1 block 3 [64x8, 4096x512, 16]", (B, 4096, H, HD), (B, 512, H, HD), markers),
               ("bag [1x8, 4096, 64]", (1, 4096, 8, 64), (1, 4096, 8, 64), None)]
-    k3, k4 = {}, {}
+    k3, k4, k4_one_pass = {}, {}, {}
     for label, qs, ks, mask in shapes:
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             q, k, v, do = randn(qs, dtype), randn(ks, dtype), randn(ks, dtype), randn(qs, dtype)
@@ -94,11 +102,12 @@ def worker(tree: str) -> dict:
             o, m, l = attention_fwd(q, k, v, mask)
             dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
             k4[f"{label} {name}"] = cuda_ms(lambda: attention_bwd(q, k, v, do, m, l, dsum, mask))
+            k4_one_pass[f"{label} {name}"] = one_pass(lambda: attention_bwd(q, k, v, do, m, l, dsum, mask))
             del q, k, v, do, o, m, l, dsum
     vit = (32, 257, 16, 64)
     q, k, v = randn(vit, torch.float32), randn(vit, torch.float32), randn(vit, torch.float32)
     k3["ViT [32x16, 257, 64] f32"] = cuda_ms(lambda: attention_fwd(q, k, v))
-    return {"tree": tree, "card": _card(), "k3_ms": k3, "k4_ms": k4,
+    return {"tree": tree, "card": _card(), "k3_ms": k3, "k4_ms": k4, "k4_one_pass": k4_one_pass,
             "window_ms": _window_ms(np, torch, rng, dev)}
 
 
@@ -180,8 +189,9 @@ def main(argv=None) -> int:
         for kernel in ("k3", "k4"):
             for label in runs[0][f"{kernel}_ms"]:
                 vals = sorted(r[f"{kernel}_ms"][label] for r in runs)
+                path = f", one_pass {runs[0]['k4_one_pass'][label]}" if kernel == "k4" else ""
                 print(f"  {kernel.upper()} {label}: {vals[len(vals) // 2]:.4f} "
-                      f"(turns {', '.join(f'{v:.4f}' for v in vals)})")
+                      f"(turns {', '.join(f'{v:.4f}' for v in vals)}{path})")
         vals = sorted(r["window_ms"] for r in runs)
         print(f"  mfmf_config1 64-case training window: {vals[len(vals) // 2]:.2f} "
               f"(turns {', '.join(f'{v:.2f}' for v in vals)})")
