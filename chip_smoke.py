@@ -4,8 +4,15 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``multimodal_fusion_tpu_torch/csrc``,
-holds each against its plain PyTorch version on the card, and drives the
-port's paths through their entry points:
+holds each against its plain PyTorch version on the inputs of the kernel
+table in PERF.md and times it there beside that version, a library
+yardstick and its bound, and drives end to end the port's paths that no
+cell of the benchmark runs.  A kernel's semantics over shapes, masks,
+dropout and routes are ``tests/test_torch_port_cuda.py``'s (``python -m
+pytest tests/test_torch_port_cuda.py -m cuda -q``); the throughput and
+correctness of what a cell runs (float32 ViT-L/16 and UNI2-h extraction,
+mfmf_config1 training) are the benchmark's (``BENCHMARK.json``); this
+script keeps the rest:
 
 - the per-slide hypergraph build at the benchmark's shape (8 slides x 4096
   patches x 1024-d features + 32 TMA cores, 100/10/5/10,
@@ -15,28 +22,25 @@ port's paths through their entry points:
   ``make_feature_extractor(batch_size=32)`` + ``extract_marker_features`` on
   synthetic uint8 cores), checked against a CPU run of the port, against the
   einsum attention on the card, and bf16 against float32; its throughput in
-  float32 and bf16 and a profile of one batch;
+  bf16 and a profile of one bf16 batch;
+- K3 and K4 held and timed at the ViT's, the bag's, MFMF's three blocks' and
+  mfmf_config1's two general blocks' shapes ([64 x 8, 512 x 4096, 16] with
+  the WSI bag's mask, [64 x 8, 4096 x 512, 16] with the markers' bucket
+  mask), float32 and bf16;
 - MFMF survival training at ``mfmf_config0`` width (1024-d inputs,
   output_dim 128, 8 heads, windows of 64 cases) through
   ``SurvivalTrainer.train_fold`` on 160 in-memory cases, with the device
   tables and with host windows, checked against a CPU run of the port's
   window step; remat's peak device memory of one window; its throughput
-  and a profile of one window.  K4 (the
-  attention backward) is held against its plain version at MFMF's three
-  block shapes first, and K3 and K4 at mfmf_config1's two general blocks
-  ([64 x 8, 512 x 4096, 16] with the WSI bag's mask, [64 x 8, 4096 x 512,
-  16] with the markers' bucket mask), float32 and bf16; at the end (phase
-  44) mfmf_config1's fusion order is trained the same way (K3 and K4 on
-  their general routes), one 16-case window checked card vs CPU and one
-  window profiled, then one ``train_fold`` of mfmf_config2;
+  and a profile of one window; at the end (phase 44) mfmf_config1's fusion
+  order through ``train_fold`` (K3 and K4 on their general routes) and one
+  16-case window card vs CPU, then one ``train_fold`` of mfmf_config2;
 - the flagship ``svd_gate_random_clam`` family's serving path, on which no
-  TPU kernel lies: its eval forward at the width of
-  ``combined_svd_gate_random_clam.sh`` on 16 of those cases, checked
-  against a CPU run of the port, bf16 against float32, and the detach
-  variant's ``drop_prob``; inference slides/s at bench.py's cell (8 cases
+  TPU kernel lies: inference slides/s at bench.py's cell (8 cases
   x 4096 WSI x 32 TMA patches x 1024, float32 and bf16) and
   ``evaluate_fold`` cases/s; the HTTP scoring server (``make_server``) over
-  a results dir of 5 fold checkpoints, checked against ``evaluate_fold``
+  a results dir of 5 fold checkpoints at the width of
+  ``combined_svd_gate_random_clam.sh``, checked against ``evaluate_fold``
   run directly and against a CPU server; a profile of one inference
   window;
 - the flagship's training, on which no TPU kernel lies either: one
@@ -56,8 +60,8 @@ port's paths through their entry points:
 - the two pretraining stages, on which no TPU kernel lies: alignment
   pretraining at the width of ``exp_volume_256_tma.sh`` /
   ``exp_svd_256_tma.sh`` (8 markers x 1024, 2 layers, batches of 512) on
-  NPZs of 1024 cores x 8 patches, one batch card vs CPU for the volume,
-  rank-1 "gram" and "svd" losses and ``validate()``; ``cli/run_alignment.py``
+  NPZs of 1024 cores x 8 patches, one batch card vs CPU for the rank-1
+  "svd" loss and ``validate()``; ``cli/run_alignment.py``
   with the script's flags, its step rates, and its checkpoint aligning
   the 8 markers at load time through the survival CLI, ``predict`` and
   the scoring server; the VAE at ``run_vae_train.sh``'s width, one step
@@ -67,7 +71,7 @@ port's paths through their entry points:
 - the rest of the build: one 65536-patch slide whose statistics stream
   over K1 stripes of 1024 rows (the median by bit-pattern refine sweeps),
   held against K1's whole [65536, 65536] K, with its time by pass and by
-  kernel; K1 at the stripe shape against its plain version; bf16 upload
+  kernel; K1 timed at the stripe shape; bf16 upload
   and the sampled statistics at 36864 patches; the streamed build card vs
   CPU at 6000 patches; ``process_dataset`` with ``file_batch=8`` against
   ``file_batch=1`` (bench shape, and bucketed 2048-4096-patch slides);
@@ -99,11 +103,12 @@ no CUDA device is present (it never falls back to the CPU).
 
 Each line a phase prints ends with the seconds since the phase began, and
 each phase ends with its wall; after the last phase a line gives the sum of
-the walls and its share of the driver's 1200 s limit.  Then come a JSON
+the walls and its share of the script's 1200 s limit.  Then come a JSON
 object with one entry per kernel (launches on the main path, error against
 the plain version, times, bound), the card's name and power limit, and as
-the last line ``{"ok": true, "device": {...}}``.  Times come from CUDA
-events and stand beside the card's name and power limit.
+the last line ``{"ok": true, "checks": N, "phase_walls_s": S, "device":
+{...}}``.  Times come from CUDA events and stand beside the card's name and
+power limit.
 """
 
 from __future__ import annotations
@@ -218,6 +223,7 @@ class Smoke:
         self.torch = torch
         self.card = _card_line()
         self.failures: list = []
+        self.checks = 0
         self.kernels: dict = {}
         self.walls: dict = {}  # phase name -> wall in s
         self.t_phase = None  # start of the running phase
@@ -232,6 +238,7 @@ class Smoke:
         self.log(f"  [{self.card}] {msg}")
 
     def check(self, ok: bool, what: str) -> None:
+        self.checks += 1
         self.log(f"  {'PASS' if ok else 'FAIL'}: {what}")
         if not ok:
             self.failures.append(what)
@@ -297,6 +304,25 @@ class Smoke:
             self.log(f"  profiler attempt {attempt + 1} saw no device time")
         self.log("  device time not measured")
         return {}
+
+    def timeline(self, prof, trace, shown: int = 5, host_ops: int = 0) -> None:
+        """Log ``prof``'s ``host_ops`` host ops of most self time, write its
+        Chrome trace to ``trace`` and log its device timeline: the span,
+        busy time and idle share, and the ``shown`` longest gaps between
+        device ops."""
+        from torch.autograd import DeviceType
+
+        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
+        for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:host_ops]:
+            self.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
+        prof.export_chrome_trace(str(trace))
+        span, busy, gaps = _device_gaps(trace)
+        if span > 0:
+            self.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
+                       f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
+                       f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
+            for us, before, after in gaps[:shown]:
+                self.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
 
     def phase(self, name: str, fn) -> None:
         self.log(f"== {name}")
@@ -865,20 +891,15 @@ def main() -> int:
         return [("config1 block 2 result->wsi [64x8, 512x4096, 16]", 512, 4096, wsi),
                 ("config1 block 3 reconstruct->result [64x8, 4096x512, 16]", 4096, 512, markers)]
 
-    def check_k1(label, rf, rp, cf, cp, bf16=False, stripe=4096, digest=False):
+    def check_k1(label, rf, rp, cf, cp, bf16=False, stripe=4096):
         """K1 against its plain version on the same inputs: max abs err <= 1e-5
         and two launches bit-identical.  The plain version runs in row
         stripes (whole, its float64 temporaries at 32768 patches would take
         tens of GiB beside the kernel's two 4 GiB outputs); returns (err,
-        the plain K assembled in float32).  ``digest`` prints a SHA-256 of
-        the output's bytes, by which two versions of the kernel can be
-        compared bit for bit across runs."""
+        the plain K assembled in float32)."""
         out = similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf16)
         again = similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf16)
         s.check(bool(torch.equal(out, again)), f"K1 {label}: two launches bit-identical")
-        if digest:
-            s.log(f"  K1 {label}: output sha256 "
-                  f"{hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]}")
         del again
         plain = torch.empty_like(out)
         err = 0.0
@@ -950,6 +971,41 @@ def main() -> int:
                              f"scale of float64 (relative to the distance: {rel:.2e})")
         return float((d_k - d_p).abs().max()), i_k
 
+    def check_k3(label, q, k, v, mask=None, route=None):
+        """K3 on ``route`` (None: the shape's) against its plain version on
+        the inputs it is timed on: two launches bit-identical; o within 2e-5
+        in float32, in bf16 within 4 units of 2^-8 times the plain output on
+        |v| (``_bf16_units``); m within 1e-6 of max(|m|, 1) (the dots summed
+        in another order); l within 1e-5 relative.  Returns o's max abs err."""
+        got, again = (attention_fwd(q, k, v, mask, route=route) for _ in range(2))
+        want = plain_fused_attention(q, k, v, mask)
+        s.check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K3 {label}: two launches bit-identical")
+        err = float((got[0].float() - want[0].float()).abs().max())
+        o_err, o_bar = err, 2e-5
+        if q.dtype == torch.bfloat16:
+            o_err, o_bar = _bf16_units(got[0], want[0], plain_fused_attention(q, k, v.abs(), mask)[0]), 4
+        m_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1.0)).max())
+        l_err = float(((got[2] - want[2]).abs() / want[2]).max())
+        s.check(o_err <= o_bar and m_err <= 1e-6 and l_err <= 1e-5,
+                f"K3 {label}: o {o_err:.3g} <= {o_bar:g}{' units' if o_bar == 4 else ''}, m within "
+                f"{m_err:.2e} <= 1e-6 of max(|m|, 1), l rel err {l_err:.2e} <= 1e-5")
+        return err
+
+    def check_k4(label, args, route=None):
+        """K4 on ``route`` against its plain version fed the same (q, k, v,
+        do, m, l, dsum, mask): two launches bit-identical; relative L2 per
+        output <= 1e-5 in float32 (sums in other orders), <= 1e-2 in bf16 (ds
+        and p round to bf16 before the second products on both sides).
+        Returns the max abs err."""
+        got, again = (attention_bwd(*args, route=route) for _ in range(2))
+        want = plain_fused_attention_bwd(*args)
+        s.check(all(torch.equal(a, b) for a, b in zip(got, again)), f"K4 {label}: two launches bit-identical")
+        errs = [_rel_l2_all(g, w) for g, w in zip(got, want)]
+        bar = 1e-5 if args[0].dtype == torch.float32 else 1e-2
+        s.check(max(errs) <= bar, f"K4 {label}: relative L2 dq {errs[0]:.2e}, dk {errs[1]:.2e}, "
+                                  f"dv {errs[2]:.2e} <= {bar:g}")
+        return max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+
     # ---------------------------------------------------------------- 1
     def device_phase():
         s.log(f"  nvidia-smi: {s.card}")
@@ -980,7 +1036,10 @@ def main() -> int:
             ("bf16_exact [4096,4096,1024]", f_bf, p, f_bf, p, True),
         ]
         for label, rf, rp, cf, cp, bf in cases:
-            err, _ = check_k1(label, rf, rp, cf, cp, bf, digest=True)
+            # by which two versions of the kernel compare bit for bit across runs
+            out = similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf).cpu().numpy()
+            s.log(f"  K1 {label}: output sha256 {hashlib.sha256(out.tobytes()).hexdigest()[:16]}")
+            err, _ = check_k1(label, rf, rp, cf, cp, bf)
             ms = s.cuda_ms(lambda: similarity_rect(rf, rp, cf, cp, 1.0, 1.0, bf))
             plain_ms = s.cuda_ms(lambda: similarity_rect_plain(rf, rp, cf, cp, 1.0, 1.0, bf))
             lib_ms = s.cuda_ms(lambda: torch.matmul(rf, cf.T))
@@ -1225,63 +1284,21 @@ def main() -> int:
 
     # ---------------------------------------------------------------- 8
     def attention_phase():
-        """K3 against its plain version on the same inputs.  Tolerances: o
-        within 2e-5 absolute in float32; in bf16, elementwise within 4
-        units of 2^-8 times the plain output on |v| (``_bf16_units``: p
-        rounds to bf16 before P.V on both sides, a last-bit difference in
-        f32 p can flip a rounding, and o rounds to bf16); m exact where every
-        score is exact in f32 (inputs on a 1/8 grid), else within 1e-6 of
-        max(|m|, 1) (the f32 rounding of the dots, summed in another
-        order); l within 1e-5 relative; two launches bit-identical.  Every
-        route: the general one at the ViT and bag shapes, the narrow ones
-        (and the general one on the same inputs) at MFMF's block shapes in
-        bf16 here and in float32 in phase 11."""
+        """K3 at the ViT, bag and mfmf_config1 shapes: held against its plain
+        version (``check_k3``) and timed beside it, SDPA and the bound."""
         import torch.nn.functional as F
 
         rng = np.random.default_rng(8)
 
-        def draw(shape, dtype, grid=False):
-            x = rng.standard_normal(shape)
-            if grid:
-                x = np.round(np.clip(x, -1, 1) * 8) / 8
-            return torch.as_tensor(x.astype(np.float32), device=dev).to(dtype)
-
-        def qkv_views(dtype, grid=False):  # as the ViT block slices its projection
-            qkv = draw((VIT_BATCH, VIT_TOKENS, 3, VIT_HEADS, VIT_HEAD_DIM), dtype, grid)
-            return qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-
-        def check(label, q, k, v, mask=None, rate=0.0, seed=None, m_exact=False, route=None):
-            before = dict(attention_fwd.route_launches)
-            got = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed, route=route)
-            again = attention_fwd(q, k, v, mask, dropout_rate=rate, seed=seed, route=route)
-            ran = [r for r in ROUTES if attention_fwd.route_launches[r] != before[r]]
-            label = f"{label} ({'/'.join(ran)} route)"
-            want = plain_fused_attention(q, k, v, mask, dropout_rate=rate, seed=seed)
-            torch.cuda.synchronize()
-            s.check(all(torch.equal(a, b) for a, b in zip(got, again)),
-                    f"K3 {label}: two launches bit-identical")
-            o_err = float((got[0].float() - want[0].float()).abs().max())
-            if q.dtype == torch.bfloat16:
-                scale = plain_fused_attention(q, k, v.abs(), mask, dropout_rate=rate, seed=seed)[0]
-                units = _bf16_units(got[0], want[0], scale)
-                s.check(units <= 4, f"K3 {label}: o within {units:.3f} <= 4 units of 2^-8 x "
-                                    f"the plain output on |v| (max abs err {o_err:.3e})")
-            else:
-                s.check(o_err <= 2e-5, f"K3 {label}: o max abs err {o_err:.3e} <= 2e-05")
-            if m_exact:
-                s.check(bool(torch.equal(got[1], want[1])), f"K3 {label}: m exact")
-            else:
-                m_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1.0)).max())
-                s.check(m_err <= 1e-6, f"K3 {label}: m within {m_err:.2e} <= 1e-6 of max(|m|, 1)")
-            l_err = float(((got[2] - want[2]).abs() / want[2]).max())
-            s.check(l_err <= 1e-5, f"K3 {label}: l max rel err {l_err:.2e} <= 1e-5")
-            return got, o_err
+        def draw(shape, dtype):
+            return torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev).to(dtype)
 
         def timed(label, q, k, v, valid_k=None, mask=None):
             """Kernel, plain and SDPA (yardstick, with the same key mask)
             times, and the bound over the keys this call needs (``valid_k``
             a case)."""
             b, t_q, h, hd = q.shape
+            err = check_k3(label, q, k, v, mask)
             ms = s.cuda_ms(lambda: attention_fwd(q, k, v, mask))
             dev_ms = s.device_ms(lambda: attention_fwd(q, k, v, mask))
             route_ms["attention"]["general"][label] = {"ms": ms, "device_ms": sum(dev_ms.values())}
@@ -1294,15 +1311,14 @@ def main() -> int:
                     + ", ".join(f"{n} {t:.4f}" for n, t in dev_ms.items())
                     + f"), plain {plain_ms:.4f} ms, scaled_dot_product_attention {lib_ms:.4f} ms, "
                     f"bound {bound:.4f} ms ({by})")
-            return ms, plain_ms, lib_ms, bound, by
+            return ms, plain_ms, lib_ms, bound, by, err
 
         # (a) the ViT-L shape, f32 and bf16, q/k/v strided views of one projection
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
             shape = f"[{VIT_BATCH}x{VIT_HEADS}, {VIT_TOKENS}, {VIT_HEAD_DIM}] {name}"
-            check(f"ViT {shape}, 1/8-grid inputs", *qkv_views(dtype, grid=True), m_exact=True)
-            q, k, v = qkv_views(dtype)
-            _, err = check(f"ViT {shape}", q, k, v)
-            ms, plain_ms, lib_ms, bound, by = timed(f"ViT {shape}", q, k, v)
+            qkv = draw((VIT_BATCH, VIT_TOKENS, 3, VIT_HEADS, VIT_HEAD_DIM), dtype)
+            q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+            ms, plain_ms, lib_ms, bound, by, err = timed(f"ViT {shape}", q, k, v)
             if dtype == torch.bfloat16:
                 # the 257-token edge: a fifth q tile of one row and a fifth
                 # key tile of one key, which 256 tokens do without
@@ -1323,51 +1339,20 @@ def main() -> int:
                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                     "bound_ms": bound, "bound_by": by, "library_ms": lib_ms,
                 }
-        # (b) the MFMF bag shape (bench.py:739-756): batch 0 keeps a ragged
-        # 3001 of 4096 keys, batch 1 is all masked
-        bag = (2, 4096, 8, 64)
-        mask = torch.zeros((2, 4096), dtype=torch.bool, device=dev)
-        mask[0, :3001] = True
+        # (b) the MFMF bag shape (bench.py:739-756), one bag without a mask
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            q, k, v = (draw(bag, dtype) for _ in range(3))
-            got, _ = check(f"bag [8, 4096, 64] {name}, ragged + all-masked kv_mask", q, k, v, mask)
-            uniform = v[1].float().mean(0)[None].expand_as(got[0][1])  # [Tq, H, hd]
-            if dtype == torch.bfloat16:
-                scale = v[1].float().abs().mean(0)[None].expand_as(uniform)
-                u_err, u_tol, unit = _bf16_units(got[0][1], uniform, scale), 4, " units"
-            else:
-                u_err, u_tol, unit = float((got[0][1] - uniform).abs().max()), 2e-5, " abs"
-            s.check(bool(torch.all(got[1][1] == -1e9)) and u_err <= u_tol,
-                    f"K3 bag {name}: all-masked bag gives m = -1e9 and the uniform average of v "
-                    f"(err {u_err:.3g} <= {u_tol:g}{unit})")
-            timed(f"bag [1x8, 4096, 64] {name}, no mask", q[:1], k[:1], v[:1])
-        # (c) dropout, against the hash-mask plain version
-        for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            q, k, v = draw((2, 40, 4, 64), dtype), draw((2, 300, 4, 64), dtype), draw((2, 300, 4, 64), dtype)
-            check(f"[2x4, 40x300, 64] {name}, dropout 0.1", q, k, v, rate=0.1, seed=-1399772917)
-        # (d) the narrow routes in bf16 at MFMF's block shapes (64 cases x 8
-        # heads, hd 16), each against the plain version, and the general
-        # route on the same inputs; ragged masks, one case all masked
-        for t_q, t_k in ((5, 512), (5, 4096), (4096, 5)):
-            q = draw((MFMF_BATCH, t_q, MFMF_HEADS, 16), torch.bfloat16)
-            k, v = (draw((MFMF_BATCH, t_k, MFMF_HEADS, 16), torch.bfloat16) for _ in range(2))
-            mask = torch.as_tensor(np.arange(t_k)[None] < rng.integers(1, t_k + 1, (MFMF_BATCH, 1)),
-                                   device=dev)
-            mask[0] = False
-            for route in (None, "general"):
-                check(f"[64x8, {t_q}x{t_k}, 16] bf16, ragged + all-masked kv_mask", q, k, v, mask,
-                      route=route)
-        # (e) mfmf_config1's general blocks at full width (hd 16 unpadded),
-        # f32 and bf16, with MFMF's key masks, timed beside SDPA
+            q, k, v = (draw((1, 4096, 8, 64), dtype) for _ in range(3))
+            timed(f"bag [1x8, 4096, 64] {name}, no mask", q, k, v)
+        # (c) mfmf_config1's general blocks at full width (hd 16 unpadded),
+        # f32 and bf16, with MFMF's key masks
         for label, t_q, t_k, mask in config1_blocks(*mfmf_masks(rng)):
             for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
                 q = draw((MFMF_BATCH, t_q, MFMF_HEADS, 16), dtype)
                 k, v = (draw((MFMF_BATCH, t_k, MFMF_HEADS, 16), dtype) for _ in range(2))
-                check(f"{label} {name}", q, k, v, mask)
                 timed(f"{label} {name}", q, k, v, float(mask.sum()) / MFMF_BATCH, mask)
 
     # ---------------------------------------------------------------- 9
-    vit = {}  # extractors and the timed window, read by phase 10
+    vit = {}  # the bf16 extractor and its timed window, read by phase 10
 
     def vit_phase():
         """The slice's main path: ViT-L/16 extraction at full width."""
@@ -1399,7 +1384,7 @@ def main() -> int:
         xla = make_feature_extractor(model, batch_size=VIT_BATCH, attn_impl="xla")
         window = [p for key in list(cores)[:11] for p in
                   extract_patches_from_image(cores[key], 256, 128)][:VIT_WINDOW]
-        vit.update(float32=f32, bfloat16=bf16, window=window)
+        vit.update(bfloat16=bf16, window=window)
 
         reset_counts()
         torch.cuda.synchronize()
@@ -1460,35 +1445,33 @@ def main() -> int:
         s.log(f"  LayerScale 1: bf16 vs f32 CLS cosine min {cos1:.6f} (measured, no bar)")
         del strong
 
+        # bf16's rate: no cell runs it (the ViT cells time float32)
         window_batches = VIT_WINDOWS * -(-VIT_WINDOW // VIT_BATCH)
-        for label in ("float32", "bfloat16"):
-            ex = vit[label]
-            ex(window)  # warm-up
-            reset_counts()
-            walls, finite = [], True
-            for _ in range(VIT_WINDOWS):
-                t0 = time.perf_counter()
-                out = ex(window)
-                walls.append(time.perf_counter() - t0)
-                finite &= bool(np.isfinite(out).all())
-            add_main_path_counts()
-            s.check(finite, f"{label} windows: features finite")
-            s.check(attention_fwd.launches == VIT_DEPTH * window_batches,
-                    f"{label} windows: K3 launched {VIT_DEPTH} times per batch "
-                    f"({attention_fwd.launches} == {VIT_DEPTH} x {window_batches})")
-            s.check(attention_fwd.route_launches["general"] == attention_fwd.launches,
-                    f"{label} windows: K3 ran the general route ({attention_fwd.route_launches})")
-            rates = sorted(VIT_WINDOW / w for w in walls)
-            med = VIT_WINDOW / float(np.median(walls))
-            vit[f"{label}_ms_per_batch"] = float(np.median(walls)) / (VIT_WINDOW / VIT_BATCH) * 1e3
-            s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
-            s.timed(f"ViT-L/16 extraction {label}: median {med:.1f} patches/s over "
-                    f"{VIT_WINDOWS} windows of {VIT_WINDOW} (min {rates[0]:.1f}, max "
-                    f"{rates[-1]:.1f}, spread {100 * (rates[-1] / rates[0] - 1):.1f}%)")
-            flops = _vit_dense_flops(VIT_BATCH)
-            s.timed(f"  {label}: dense layers {flops / 1e12:.3f} TFLOP per {VIT_BATCH}-patch "
-                    f"batch, {flops / vit[f'{label}_ms_per_batch'] / 1e9:.1f} TFLOP/s at the "
-                    f"median window")
+        bf16(window)  # warm-up
+        reset_counts()
+        walls, finite = [], True
+        for _ in range(VIT_WINDOWS):
+            t0 = time.perf_counter()
+            out = bf16(window)
+            walls.append(time.perf_counter() - t0)
+            finite &= bool(np.isfinite(out).all())
+        add_main_path_counts()
+        s.check(finite, "bfloat16 windows: features finite")
+        s.check(attention_fwd.launches == VIT_DEPTH * window_batches,
+                f"bfloat16 windows: K3 launched {VIT_DEPTH} times per batch "
+                f"({attention_fwd.launches} == {VIT_DEPTH} x {window_batches})")
+        s.check(attention_fwd.route_launches["general"] == attention_fwd.launches,
+                f"bfloat16 windows: K3 ran the general route ({attention_fwd.route_launches})")
+        rates = sorted(VIT_WINDOW / w for w in walls)
+        med = VIT_WINDOW / float(np.median(walls))
+        vit["ms_per_batch"] = float(np.median(walls)) / (VIT_WINDOW / VIT_BATCH) * 1e3
+        s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
+        s.timed(f"ViT-L/16 extraction bfloat16: median {med:.1f} patches/s over "
+                f"{VIT_WINDOWS} windows of {VIT_WINDOW} (min {rates[0]:.1f}, max "
+                f"{rates[-1]:.1f}, spread {100 * (rates[-1] / rates[0] - 1):.1f}%)")
+        flops = _vit_dense_flops(VIT_BATCH)
+        s.timed(f"  bfloat16: dense layers {flops / 1e12:.3f} TFLOP per {VIT_BATCH}-patch "
+                f"batch, {flops / vit['ms_per_batch'] / 1e9:.1f} TFLOP/s at the median window")
         s.log(f"  K3 launches on the main path (the marker run and the timed windows): "
               f"{main_path_launches['attention']}")
 
@@ -1496,40 +1479,35 @@ def main() -> int:
     def vit_profile_phase():
         from torch.profiler import ProfilerActivity, profile
 
-        batch = vit["window"][:VIT_BATCH]
-        for label in ("float32", "bfloat16"):
-            ex = vit[label]
+        batch, ex = vit["window"][:VIT_BATCH], vit["bfloat16"]
+        ex(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
             ex(batch)
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                ex(batch)
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            events = _device_events(prof)
-            if not events:
-                s.log(f"  {label}: profiler saw no device time: device busy share not measured")
-                continue
-            busy_ms = sum(us for _, us in events) / 1e3
-            k3_ms = sum(us for e, us in events if "attn_" in e.key) / 1e3
-            s.timed(f"one {VIT_BATCH}-patch batch ({label}) under torch.profiler: wall "
-                    f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% "
-                    f"of the profiled wall), K3 {k3_ms:.2f} ms ({100 * k3_ms / busy_ms:.1f}% of "
-                    f"device time), {sum(e.count for e, _ in events)} device ops")
-            per_batch = vit.get(f"{label}_ms_per_batch")
-            if per_batch:
-                s.timed(f"estimate: profiled device time over phase 9's median {per_batch:.2f} ms "
-                        f"per batch = {100 * busy_ms / per_batch:.1f}% device busy (two runs)")
-            for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
-                s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        events = _device_events(prof)
+        if not events:
+            s.log("  profiler saw no device time: device busy share not measured")
+            return
+        busy_ms = sum(us for _, us in events) / 1e3
+        k3_ms = sum(us for e, us in events if "attn_" in e.key) / 1e3
+        s.timed(f"one {VIT_BATCH}-patch batch (bfloat16) under torch.profiler: wall "
+                f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms ({100 * busy_ms / wall_ms:.1f}% "
+                f"of the profiled wall), K3 {k3_ms:.2f} ms ({100 * k3_ms / busy_ms:.1f}% of "
+                f"device time), {sum(e.count for e, _ in events)} device ops")
+        if "ms_per_batch" in vit:
+            s.timed(f"estimate: profiled device time over phase 9's median {vit['ms_per_batch']:.2f} "
+                    f"ms per batch = {100 * busy_ms / vit['ms_per_batch']:.1f}% device busy (two runs)")
+        for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
+            s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
 
     # ---------------------------------------------------------------- 11
     def attention_bwd_phase():
-        """K4 against its plain version, both fed the plain forward's m, l
-        and dsum: relative L2 <= 1e-5 per output in float32 (sums in other
-        orders), <= 1e-2 in bf16 (ds and p round to bf16 before the second
-        products on both sides, where a last-bit difference in float32 can
-        flip a rounding); two launches bit-identical.  K3 against its plain
-        version at MFMF's three shapes as in phase 8."""
+        """K4 (and K3) at MFMF's three blocks, mfmf_config1's two general
+        blocks and the bag shape, fed as training feeds K4 (K3's m and l):
+        held against the plain versions on each route timed (``check_k4``,
+        ``check_k3``) and timed beside them, SDPA and the bound."""
         import torch.nn.functional as F
 
         rng = np.random.default_rng(11)
@@ -1538,83 +1516,13 @@ def main() -> int:
         def randn(shape, dtype=torch.float32):
             return torch.as_tensor(rng.standard_normal(shape, dtype=np.float32), device=dev).to(dtype)
 
-        def check_k4(label, q, k, v, mask, args=None, route=None, **drop):
-            """K4 on ``route`` (None: the shape's) against its plain version;
-            ``args`` (q, k, v, do, m, l, dsum, mask) are reused when given."""
-            if args is None:
-                o, m, l = plain_fused_attention(q, k, v, mask, **drop)
-                do = randn(tuple(q.shape), q.dtype)
-                dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
-                args = (q, k, v, do, m, l, dsum, mask)
-            before = dict(attention_bwd.route_launches)
-            got = attention_bwd(*args, route=route, **drop)
-            again = attention_bwd(*args, route=route, **drop)
-            ran = [r for r in ROUTES if attention_bwd.route_launches[r] != before[r]]
-            label = f"{label} ({'/'.join(ran)} route)"
-            want = plain_fused_attention_bwd(*args, **drop)
-            torch.cuda.synchronize()
-            s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                    f"K4 {label}: two launches bit-identical")
-            errs = [_rel_l2_all(g, w) for g, w in zip(got, want)]
-            bar = 1e-5 if q.dtype == torch.float32 else 1e-2
-            s.check(max(errs) <= bar, f"K4 {label}: relative L2 dq {errs[0]:.2e}, dk {errs[1]:.2e}, "
-                                      f"dv {errs[2]:.2e} <= {bar:g}")
-            abs_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-            return got, args, abs_err
-
-        def check_k4_chunked(label, q, k, v, mask):
-            """K4 on its shape's route against the plain version, which runs
-            8 cases at a time (m, l from the plain forward, chunked alike):
-            relative L2 over all 64 cases at check_k4's bars, two launches
-            bit-identical.  Returns (args, max abs err)."""
-            m, l = (torch.empty((b, h, q.shape[1]), device=dev) for _ in range(2))
+        def bwd_args(q, k, v, mask):
+            """K4's inputs (q, k, v, do, m, l, dsum, mask): K3's o, m and l
+            and a random do."""
+            o, m, l = attention_fwd(q, k, v, mask)
             do = randn(tuple(q.shape), q.dtype)
-            dsum = torch.empty_like(m)
-            for c0 in range(0, b, 8):
-                o, m[c0:c0 + 8], l[c0:c0 + 8] = plain_fused_attention(
-                    q[c0:c0 + 8], k[c0:c0 + 8], v[c0:c0 + 8], mask[c0:c0 + 8])
-                dsum[c0:c0 + 8] = (do[c0:c0 + 8].float() * o.float()).sum(-1).transpose(1, 2)
-            args = (q, k, v, do, m, l, dsum, mask)
-            before = dict(attention_bwd.route_launches)
-            got = attention_bwd(*args)
-            again = attention_bwd(*args)
-            ran = [r for r in ROUTES if attention_bwd.route_launches[r] != before[r]]
-            label = f"{label} ({'/'.join(ran)} route)"
-            torch.cuda.synchronize()
-            s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                    f"K4 {label}: two launches bit-identical")
-            del again
-            diff2, ref2, abs_err = [0.0] * 3, [0.0] * 3, 0.0
-            for c0 in range(0, b, 8):
-                want = plain_fused_attention_bwd(*(a[c0:c0 + 8] for a in args))
-                for i, (g_, w) in enumerate(zip(got, want)):
-                    g8, w8 = g_[c0:c0 + 8].float(), w.float()
-                    diff2[i] += float(((g8 - w8) ** 2).sum())
-                    ref2[i] += float((w8 ** 2).sum())
-                    abs_err = max(abs_err, float((g8 - w8).abs().max()))
-                del want
-            errs = [(d / max(r, 1e-300)) ** 0.5 for d, r in zip(diff2, ref2)]
-            bar = 1e-5 if q.dtype == torch.float32 else 1e-2
-            s.check(max(errs) <= bar, f"K4 {label}: relative L2 over 64 cases (plain in chunks of 8) dq "
-                                      f"{errs[0]:.2e}, dk {errs[1]:.2e}, dv {errs[2]:.2e} <= {bar:g}")
-            return args, abs_err
-
-        def check_k3(label, q, k, v, mask, route=None):
-            before = dict(attention_fwd.route_launches)
-            got = attention_fwd(q, k, v, mask, route=route)
-            again = attention_fwd(q, k, v, mask, route=route)
-            ran = [r for r in ROUTES if attention_fwd.route_launches[r] != before[r]]
-            label = f"{label} ({'/'.join(ran)} route)"
-            want = plain_fused_attention(q, k, v, mask)
-            torch.cuda.synchronize()
-            s.check(all(torch.equal(x, y) for x, y in zip(got, again)),
-                    f"K3 {label}: two launches bit-identical")
-            o_err = float((got[0] - want[0]).abs().max())
-            m_err = float(((got[1] - want[1]).abs() / want[1].abs().clamp_min(1.0)).max())
-            l_err = float(((got[2] - want[2]).abs() / want[2]).max())
-            s.check(o_err <= 2e-5 and m_err <= 1e-6 and l_err <= 1e-5,
-                    f"K3 {label}: o max abs err {o_err:.2e} <= 2e-05, m within {m_err:.2e} <= "
-                    f"1e-6 of max(|m|, 1), l rel err {l_err:.2e} <= 1e-5")
+            dsum = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+            return q, k, v, do, m, l, dsum, mask
 
         def sdpa_ms(q, k, v, do, mask):
             """(forward ms, backward ms: autograd through SDPA less its
@@ -1643,7 +1551,8 @@ def main() -> int:
             bq, t_q, heads, d = q.shape
             t_k = k.shape[1]
             taken = route or _route(t_q, t_k, d)
-            out = {"ms": s.cuda_ms(lambda: attention_bwd(*args, route=route)),
+            err = check_k4(f"{label} ({taken} route)", args, route)
+            out = {"err": err, "ms": s.cuda_ms(lambda: attention_bwd(*args, route=route)),
                    "plain_ms": None, "library_ms": None, "k3_ms": None}
             dev_ms = s.device_ms(lambda: attention_bwd(*args, route=route))
             out["device_ms"] = sum(dev_ms.values())
@@ -1663,6 +1572,7 @@ def main() -> int:
                     + f"){extra}, bound "
                     f"{bound:.4f} ms ({by}; {out['ops'] / 1e9:.3f} GFLOP, {out['bytes'] / 1e6:.1f} MB)")
             if k3:
+                check_k3(f"{label} ({taken} route)", q, k, v, mask, route)
                 out["k3_ms"] = s.cuda_ms(lambda: attention_fwd(q, k, v, mask, route=route))
                 dev3 = s.device_ms(lambda: attention_fwd(q, k, v, mask, route=route))
                 out["k3_device_ms"] = sum(dev3.values())
@@ -1689,31 +1599,20 @@ def main() -> int:
         blocks = [("block 1 other->tma [64x8, 5x512, 16]", 5, 512, markers),
                   ("block 2 result->wsi [64x8, 5x4096, 16]", 5, 4096, wsi),
                   ("block 3 reconstruct->result [64x8, 4096x5, 16]", 4096, 5, None)]
-        window = {"ms": 0.0, "device_ms": 0.0, "k3_device_ms": 0.0, "general_ms": 0.0, "k3_ms": 0.0,
-                  "k3_general_ms": 0.0, "k3_bound": 0.0,
-                  "plain_ms": 0.0, "library_ms": 0.0, "ops": 0, "bytes": 0, "err": 0.0}
+        summed = ("ms", "device_ms", "k3_ms", "k3_device_ms", "k3_bound", "plain_ms", "ops", "bytes")
+        window = dict.fromkeys(summed + ("general_ms", "k3_general_ms", "library_ms", "err"), 0.0)
         for label, t_q, t_k, mask in blocks:
-            q, k, v = randn((b, t_q, h, hd)), randn((b, t_k, h, hd)), randn((b, t_k, h, hd))
-            for route in (None, "general"):
-                check_k3(label, q, k, v, mask, route=route)
-            _, args, err = check_k4(label, q, k, v, mask)
-            check_k4(label, q, k, v, mask, args=args, route="general")
+            args = bwd_args(randn((b, t_q, h, hd)), randn((b, t_k, h, hd)), randn((b, t_k, h, hd)), mask)
             valid = None if mask is None else int(mask.sum())
             own = timed(label, args, valid, k3=True)
             general = timed(label, args, valid, k3=True, route="general", yardsticks=False)
-            window["ms"] += own["ms"]
-            window["device_ms"] += own["device_ms"]
-            window["k3_device_ms"] += own["k3_device_ms"]
+            for key in summed:
+                window[key] += own[key]
             window["general_ms"] += general["ms"]
-            window["k3_ms"] += own["k3_ms"]
             window["k3_general_ms"] += general["k3_ms"]
-            window["k3_bound"] += own["k3_bound"]
-            window["plain_ms"] += own["plain_ms"]
             window["library_ms"] = None if own["library_ms"] is None or window["library_ms"] is None \
                 else window["library_ms"] + own["library_ms"]
-            window["ops"] += own["ops"]
-            window["bytes"] += own["bytes"]
-            window["err"] = max(window["err"], err)
+            window["err"] = max(window["err"], own["err"])
         bound, by = _bound_ms(window["ops"], window["bytes"], 4)
         s.timed(f"K4, one MFMF train window (the three blocks): narrow routes {window['ms']:.4f} ms "
                 f"(device {window['device_ms']:.4f} ms), general route {window['general_ms']:.4f} ms, "
@@ -1731,16 +1630,14 @@ def main() -> int:
         }
         # (a2) mfmf_config1's blocks 2 and 3 on the general route (hd 16
         # unpadded), f32 and bf16, with the WSI and bucket key masks; the
-        # plain version runs 8 cases at a time (its float32 scores of all 64
-        # would take GiBs); the bound counts the keys each case keeps
+        # bound counts the keys each case keeps
         c1 = {}
         for label, t_q, t_k, mask in config1_blocks(markers, wsi):
             for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-                q, k, v = randn((b, t_q, h, hd), dtype), randn((b, t_k, h, hd), dtype), randn((b, t_k, h, hd), dtype)
-                args, err = check_k4_chunked(f"{label} {name}", q, k, v, mask)
+                args = bwd_args(randn((b, t_q, h, hd), dtype), randn((b, t_k, h, hd), dtype),
+                                randn((b, t_k, h, hd), dtype), mask)
                 c1[(label, name)] = timed(f"{label} {name}", args, int(mask.sum()), k3=True)
-                c1[(label, name)]["err"] = err
-                del q, k, v, args
+                del args
         for name in ("f32", "bf16"):
             tot = {key: sum(c1[(lb, name)][key] for lb, *_ in config1_blocks(markers, wsi))
                    for key in ("ms", "device_ms", "k3_ms", "k3_device_ms", "ops", "bytes")}
@@ -1769,36 +1666,8 @@ def main() -> int:
                 f"{s.host_us(lambda: knn(x1, 4)):.1f} us")
         # (b) the bench's gradient shape (bench.py:765-785), f32 and bf16
         for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
-            q, k, v = (randn((1, 4096, 8, 64), dtype) for _ in range(3))
-            _, args, _ = check_k4(f"bag [1x8, 4096, 64] {name}", q, k, v, None)
-            timed(f"bag [1x8, 4096, 64] {name}", args)
-        # (c) dropout 0.1 with one seed per case, at block 2's shape, on
-        # both routes
-        seeds = torch.as_tensor(rng.integers(-2 ** 31, 2 ** 31, b), dtype=torch.int32, device=dev)
-        drop = dict(dropout_rate=0.1, seed=seeds)
-        q, k, v = randn((b, 5, h, hd)), randn((b, 4096, h, hd)), randn((b, 4096, h, hd))
-        want_f = plain_fused_attention(q, k, v, wsi, **drop)
-        args = None
-        for route in (None, "general"):
-            got_f = attention_fwd(q, k, v, wsi, route=route, **drop)
-            o_err = float((got_f[0] - want_f[0]).abs().max())
-            s.check(o_err <= 2e-5, f"K3 block 2, dropout 0.1, per-case seeds ({route or 'narrow_q'} "
-                                   f"route): o max abs err {o_err:.2e} <= 2e-05")
-            _, args, _ = check_k4("block 2, dropout 0.1, per-case seeds", q, k, v, wsi, args=args,
-                                  route=route, **drop)
-        # (d) an all-masked bag: zero dq and dk, dv through the uniform p
-        mask = torch.ones((2, 4096), dtype=torch.bool, device=dev)
-        mask[1] = False
-        q, k, v = randn((2, 5, h, hd)), randn((2, 4096, h, hd)), randn((2, 4096, h, hd))
-        args = None
-        for route in (None, "general"):
-            got, args, _ = check_k4("[2x8, 5x4096, 16], bag 1 all masked", q, k, v, mask, args=args,
-                                    route=route)
-            uniform = args[3][1].sum(0, keepdim=True).expand(4096, -1, -1) / 4096  # sum_q do / Tk
-            u_err = float((got[2][1] - uniform).abs().max())
-            s.check(not got[0][1].any() and not got[1][1].any() and u_err <= 1e-6,
-                    f"K4 all-masked bag ({route or 'narrow_q'} route): dq = dk = 0, dv = sum_q do / Tk "
-                    f"within {u_err:.2e} <= 1e-6")
+            timed(f"bag [1x8, 4096, 64] {name}", bwd_args(*(randn((1, 4096, 8, 64), dtype)
+                                                            for _ in range(3)), None))
 
     def remat_peaks(label, mc, ec, state, window, gen_device):
         """Peak device memory of one training window (forward, group loss,
@@ -2041,17 +1910,9 @@ def main() -> int:
                 f"per window = {100 * busy_ms / mfmf['median_ms']:.1f}% device busy (two runs)")
         for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:10]:
             s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-        trace = mfmf["dir"] / "window_trace.json"
-        prof.export_chrome_trace(str(trace))
-        span, busy, gaps = _device_gaps(trace)
-        if span > 0:
-            s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
-                    f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
-                    f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
-            for us, before, after in gaps[:5]:
-                s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+        s.timeline(prof, mfmf["dir"] / "window_trace.json")
 
-    # ---------------------------------------------------------------- 14
+    # ---------------------------------------------------------------- 15
     flag = {}  # directory, configs, trainers, models and windows, read by phases 15-17
     empty_idx = np.array([], np.int64)
 
@@ -2076,75 +1937,13 @@ def main() -> int:
         counts = {name: fn.launches for name, fn in counters.items()}
         s.check(not any(counts.values()), f"{what}: K1-K4 launched 0 times ({counts})")
 
-    def flagship_phase():
-        """The flagship eval forward on the card against a CPU run of the
-        port from the same weights and window; bf16 against float32; the
-        detach variant's drop_prob."""
-        reset_counts()
-        raws, labels = mfmf_raw_cases()
-        mc = flag_config()
-        td = Path(tempfile.mkdtemp(prefix="flagship_"))
-        ec = ExperimentConfig(exp_name="combined_svd_gate_random_clam", seed=5678,
-                              k_folds=SERVE_FOLDS, batch_size=64,
-                              target_channels=list(mc.channels_used_in_model))
-        flag.update(dir=td, ec=ec)
-        tr = SurvivalTrainer(Configs(ec, mc), td / "f32", device=dev)
-        window = tr._to_device(make_window(raws[:FLAG_WINDOW], labels[:FLAG_WINDOW]))
-        case, label = {"channels": window["channels"], "masks": window["masks"]}, window["label"]
-        n_wsi = window["masks"]["wsi=features"].sum(1)
-        s.log(f"  window: {FLAG_WINDOW} cases, WSI bags of {int(n_wsi.min())}-{int(n_wsi.max())} "
-              f"patches in a bucket of {window['channels']['wsi=features'].shape[1]}, "
-              f"{len(window['channels'])} channels")
-        card = ModelFactory.create_model(mc, seed=0, device=dev)
-        host = ModelFactory.create_model(mc, device="cpu")
-        host.load_state_dict({k: t.cpu() for k, t in card.state_dict().items()})
-        s.check(len(card.used_modality) == 7, f"{len(card.used_modality)} modalities: {card.used_modality}")
-        with torch.no_grad():
-            got = card(case, label)
-            got_loss = card.loss_fn(got["logits"], label, got)
-            t0 = time.perf_counter()
-            want = host({k: {c: t.cpu() for c, t in case[k].items()} for k in case}, label.cpu())
-            want_loss = host.loss_fn(want["logits"], label.cpu(), want)
-        s.log(f"  CPU forward of the window: {time.perf_counter() - t0:.1f} s (host)")
-        l_err = float((got["logits"].cpu() - want["logits"]).abs().max())
-        p_err = float((got["probabilities"].cpu() - want["probabilities"]).abs().max())
-        loss_err = float(((got_loss.cpu() - want_loss).abs() / want_loss.abs()).max())
-        a_err = _rel_l2_all(got["aligned_features_stack"].cpu(), want["aligned_features_stack"])
-        # true float32 on both sides, summed in other orders over 1024-d rows
-        s.check(l_err <= 1e-4 and p_err <= 1e-5,
-                f"flagship forward, card vs CPU (float32, TF32 off): logits max abs err "
-                f"{l_err:.2e} <= 1e-4, probabilities {p_err:.2e} <= 1e-5")
-        s.check(loss_err <= 1e-4 and a_err <= 1e-5,
-                f"per-case eval losses within {loss_err:.2e} <= 1e-4 relative, "
-                f"aligned_features_stack {tuple(got['aligned_features_stack'].shape)} within "
-                f"{a_err:.2e} <= 1e-5 relative L2")
-
-        tr16 = SurvivalTrainer(Configs(ec, bf16_config(mc)), td / "bf16", device=dev)
-        p16 = tr16._eval_window(tr16._compute_model(card), window)[1]
-        d16 = float((p16 - got["probabilities"]).abs().max())
-        s.check(p16.dtype == torch.float32 and d16 <= 4e-2,
-                f"compute_dtype bfloat16 vs float32: probabilities within {d16:.2e} <= 4e-2 "
-                "(the JAX package's bar, tests/test_trainers.py:test_bf16_eval_matches_f32)")
-
-        det = ModelFactory.create_model(flag_config("svd_gate_random_clam_detach"), seed=0, device=dev)
-        gen = torch.Generator(device=dev)
-        with torch.no_grad():
-            plain = det(case, label)["logits"]
-            zero = det(case, label, generator=gen.manual_seed(0), drop_prob=0.0)["logits"]
-            ones = det(case, label, generator=gen.manual_seed(0), drop_prob=1.0)["logits"]
-            head = det.fusion_prediction(
-                torch.zeros(FLAG_WINDOW, det.fusion_prediction[0].in_features, device=dev))
-        s.check(torch.equal(plain, zero), "svd_gate_random_clam_detach at drop_prob 0.0 equals "
-                                          "its forward without drop_prob")
-        s.check(torch.equal(ones, head), "svd_gate_random_clam_detach at drop_prob 1.0: the logits "
-                                         "are the fusion head's on an all-zero input")
-        no_kernel_launches("phase 14")
-
-    # ---------------------------------------------------------------- 15
     def flagship_inference_phase():
         """Main path: flagship inference slides/s at bench.py's cell, and
         evaluate_fold cases/s over phase 12's cases on host windows."""
         reset_counts()
+        flag.update(dir=Path(tempfile.mkdtemp(prefix="flagship_")), ec=ExperimentConfig(
+            exp_name="combined_svd_gate_random_clam", seed=5678, k_folds=SERVE_FOLDS, batch_size=64,
+            target_channels=list(flag_config().channels_used_in_model)))
         chans = ["wsi=features", "tma=cd3=features", "clinical=val", "clinical=mask"]
         mc = ModelConfig(model_type="svd_gate_random_clam", n_classes=2, input_dim=DIM,
                          model_size="64*32", dropout=0.25, output_dim=128,
@@ -2225,8 +2024,9 @@ def main() -> int:
         rd.mkdir()
         Configs(ec, mc).save(rd / f"configs_{ec.exp_name}.json")
         for fold in range(SERVE_FOLDS):
-            save_model(rd / f"s_{fold}_checkpoint.npz",
-                       ModelFactory.create_model(mc, seed=100 + fold, device=dev))
+            model = ModelFactory.create_model(mc, seed=100 + fold, device=dev)
+            save_model(rd / f"s_{fold}_checkpoint.npz", model)
+        s.check(len(model.used_modality) == 7, f"{len(model.used_modality)} modalities: {model.used_modality}")
         folds = list(range(SERVE_FOLDS))
         by_path = {f"h5/case_{i:03d}.h5": raw for i, raw in enumerate(raws)}
         names = ("deceased", "living")
@@ -2306,7 +2106,8 @@ def main() -> int:
                     same, err = max_diff(got, responses[n])
                     s.check(same and err <= 1e-4, f"{n} cases, CPU ScoringServer vs the card's "
                                                   f"responses: max abs diff {err:.2e} <= 1e-4 "
-                                                  "(phase 14's logit bound; risk is a logit)")
+                                                  "(the flagship's logit bound card vs CPU; risk "
+                                                  "is a logit)")
             finally:
                 cpu.server_close()
         finally:
@@ -2323,7 +2124,6 @@ def main() -> int:
         """One phase-15 window in float32 and in bf16 under the profiler:
         device busy share, device ops, the longest device ops, the longest
         host ops (self time) and the longest idle gaps."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         reset_counts()
@@ -2348,18 +2148,7 @@ def main() -> int:
                     f"window = {100 * busy_ms / median_ms:.1f}% device busy (two runs)")
             for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
                 s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-            host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-            for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
-                s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
-            trace = flag["dir"] / f"inference_trace_{name}.json"
-            prof.export_chrome_trace(str(trace))
-            span, busy, gaps = _device_gaps(trace)
-            if span > 0:
-                s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the "
-                        f"last, busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it "
-                        f"in {sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
-                for us, before, after in gaps[:3]:
-                    s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+            s.timeline(prof, flag["dir"] / f"inference_trace_{name}.json", 3, host_ops=6)
         no_kernel_launches("phase 17")
 
     # ---------------------------------------------------------------- 18
@@ -2808,18 +2597,7 @@ def main() -> int:
                     f"ms per window = {100 * busy_ms / flag_train['median_ms']:.1f}% device busy (two runs)")
             for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
                 s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-            host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-            for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
-                s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
-            trace = flag_train["dir"] / "train_trace.json"
-            prof.export_chrome_trace(str(trace))
-            span, busy, gaps = _device_gaps(trace)
-            if span > 0:
-                s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
-                        f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
-                        f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
-                for us, before, after in gaps[:5]:
-                    s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+            s.timeline(prof, flag_train["dir"] / "train_trace.json", host_ops=6)
 
         # the SVD group loss of one window alone: forward + backward
         model, tr, rows = flag_train["model"], flag_train["tr"], flag_train["rows"]
@@ -3243,7 +3021,6 @@ def main() -> int:
     def cust_omics_profile_phase():
         """One phase-22 training window under the profiler: device busy
         share, device ops, the longest device and host ops, idle gaps."""
-        from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
         reset_counts()
@@ -3267,18 +3044,7 @@ def main() -> int:
                 f"per window = {100 * busy_ms / hg_run['median_ms']:.1f}% device busy (two runs)")
         for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
             s.timed(f"  device {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-        host = [e for e in prof.key_averages() if e.device_type == DeviceType.CPU]
-        for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:6]:
-            s.timed(f"  host self {e.self_cpu_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:60]}")
-        trace = hg_run["dir"] / "train_trace.json"
-        prof.export_chrome_trace(str(trace))
-        span, busy, gaps = _device_gaps(trace)
-        if span > 0:
-            s.timed(f"device timeline: {span / 1e3:.3f} ms from the first device op to the last, "
-                    f"busy {busy / 1e3:.3f} ms, idle {100 * (1 - busy / span):.1f}% of it in "
-                    f"{sum(1 for g in gaps if g[0] >= 5)} gaps of >= 5 us")
-            for us, before, after in gaps[:5]:
-                s.timed(f"  gap {us:9.1f} us after {before[:45]} before {after[:45]}")
+        s.timeline(prof, hg_run["dir"] / "train_trace.json", host_ops=6)
         no_kernel_launches("phase 23")
 
     # ---------------------------------------------------------------- 24
@@ -3360,8 +3126,9 @@ def main() -> int:
     def alignment_step_phase():
         """One batch of 512 of run_alignment's training view, card vs CPU
         from the same weights, batch and predictor dropout masks (one CPU
-        generator): volume, rank1 "gram" and rank1 "svd" (the CPU at the
-        card's signs of U1); validate() card vs CPU."""
+        generator): rank1 "svd" (the CPU at the card's signs of U1; the
+        card tests hold volume and rank1 "gram" at this width);
+        validate() card vs CPU."""
         reset_counts()
         views = alignment_data()
         t0 = time.perf_counter()
@@ -3370,21 +3137,14 @@ def main() -> int:
               f"views: {len(views['train'])} train, {len(views['val'])} val samples")
         state = {k: t.cpu() for k, t in alignment_trainer(dev, "volume").model.state_dict().items()}
 
-        def one_step(loss_type, svd_impl):
-            def run(device, dtype):
-                tr = alignment_trainer(device, loss_type, svd_impl, state, dtype)
-                batch = [{m: torch.as_tensor(v, device=device, dtype=dtype) for m, v in b.items()}
-                         for b in (pos, neg)]
-                loss, svd = tr._loss(*batch, torch.Generator().manual_seed(7), True)
-                grads = torch.autograd.grad(loss, tr.params)
-                return {"loss": float(loss.detach()), "svd_values": svd.detach().cpu().double(),
-                        "grads": [g.cpu().double() for g in grads]}
-            return run
-
-        held("volume step (exp_volume_256_tma)", on_both(one_step("volume", "gram")), step_bars)
-        held("rank1 'gram' step with loss_IM (exp_svd_256_tma)", on_both(one_step("rank1", "gram")),
-             step_bars)
-        run_svd = one_step("rank1", "svd")
+        def run_svd(device, dtype):
+            tr = alignment_trainer(device, "rank1", "svd", state, dtype)
+            batch = [{m: torch.as_tensor(v, device=device, dtype=dtype) for m, v in b.items()}
+                     for b in (pos, neg)]
+            loss, svd = tr._loss(*batch, torch.Generator().manual_seed(7), True)
+            grads = torch.autograd.grad(loss, tr.params)
+            return {"loss": float(loss.detach()), "svd_values": svd.detach().cpu().double(),
+                    "grads": [g.cpu().double() for g in grads]}
 
         def svd_pair(dtype):
             # the card's run records U1; the CPU's run that follows takes its signs
@@ -3919,13 +3679,7 @@ def main() -> int:
         plain version on the same rows, timed beside torch.matmul's dot."""
         f, p = big["slide"]
         rf, rp = f[:STRIPE], p[:STRIPE]
-        out = similarity_rect(rf, rp, f, p)
-        again = similarity_rect(rf, rp, f, p)
-        plain = similarity_rect_plain(rf, rp, f, p)
-        err = float((out - plain).abs().max())
-        s.check(bool(torch.equal(out, again)), "K1 stripe: two launches bit-identical")
-        s.check(err <= 1e-5, f"K1 stripe [{STRIPE},{BIG_N},{DIM}]: max abs err {err:.3e} <= 1e-5")
-        del out, again, plain
+        err, _ = check_k1(f"stripe [{STRIPE},{BIG_N},{DIM}]", rf, rp, f, p)
         ms = s.cuda_ms(lambda: similarity_rect(rf, rp, f, p), iters=10)
         plain_ms = s.cuda_ms(lambda: similarity_rect_plain(rf, rp, f, p), iters=5, warmup=1)
         lib_ms = s.cuda_ms(lambda: torch.matmul(rf, f.T), iters=10)
@@ -4829,11 +4583,9 @@ def main() -> int:
     def mfmf_config1_phase():
         """mfmf_config1's fusion order at full width through ``train_fold``
         (K3 and K4 on their general routes for blocks 2 and 3, narrow_k for
-        block 1), its training rate on the device tables, one 16-case window
-        card vs CPU at phase 12's bars, a profile of one window; then one
+        block 1) and one 16-case window card vs CPU at phase 12's bars (the
+        cell mfmf_config1.train times and profiles its training); then one
         ``train_fold`` of mfmf_config2 (narrow_q blocks only)."""
-        from torch.profiler import ProfilerActivity, profile
-
         raws, labels = mfmf_raw_cases()
         ds = _CaseTable(raws, labels)
         mc, ec = mfmf_configs(MFMF_CONFIG1, "mfmf_config1")
@@ -4871,52 +4623,9 @@ def main() -> int:
                 f"epoch {h_['epoch']}: train {h_['train_loss']:.6f} val {h_['val_loss']:.6f} "
                 f"auc {h_['val_auc']:.4f}" for h_ in hist))
 
-            # the device path's rate: 64-case windows (row gather + the
-            # trainer's step) after a warm-up
             all_idx = np.concatenate([split.train_idx, split.val_idx, split.test_idx]).astype(np.int64)
             tables, row_of = tr._device_tables(ds, all_idx)
             rows = torch.as_tensor([row_of[int(i)] for i in split.train_idx], dtype=torch.int64)
-            model = tr._build_model(0)
-            opt = make_optimizer(ec.optimizer, ec.weight_decay, model.parameters(), ec.lr)
-            gen = torch.Generator(device=dev).manual_seed(0)
-
-            def device_window(i):
-                idx = rows[(i % 2) * MFMF_BATCH:(i % 2 + 1) * MFMF_BATCH].to(dev)
-                return tr._train_step(model, opt, tr._gather_window(tables, idx), gen)
-
-            device_window(0)
-            torch.cuda.synchronize()
-            walls = []
-            for i in range(MFMF_TIMED_WINDOWS):
-                t0 = time.perf_counter()
-                device_window(i + 1)
-                torch.cuda.synchronize()
-                walls.append(time.perf_counter() - t0)
-            rates = sorted(MFMF_BATCH / w for w in walls)
-            s.log("  window walls (s): " + ", ".join(f"{w:.4f}" for w in walls))
-            s.timed(f"mfmf_config1 training, device path: median {MFMF_BATCH / float(np.median(walls)):.1f} "
-                    f"cases/s over {MFMF_TIMED_WINDOWS} windows of {MFMF_BATCH} (min {rates[0]:.1f}, "
-                    f"max {rates[-1]:.1f}; median window {1e3 * float(np.median(walls)):.2f} ms)")
-
-            # one window's device time by kernel
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                device_window(1)
-                torch.cuda.synchronize()
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            events = _device_events(prof)
-            if events:
-                busy_ms = sum(us for _, us in events) / 1e3
-                k3_ms = sum(us for e, us in events if "attn_" in e.key and "attn_bwd" not in e.key) / 1e3
-                k4_ms = sum(us for e, us in events if "attn_bwd" in e.key) / 1e3
-                s.timed(f"one mfmf_config1 {MFMF_BATCH}-case training window under torch.profiler: wall "
-                        f"{wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, K3 {k3_ms:.3f} ms, K4 {k4_ms:.3f} "
-                        f"ms ({100 * (k3_ms + k4_ms) / busy_ms:.1f}% of device time), "
-                        f"{sum(e.count for e, _ in events)} device ops")
-                for e, us in sorted(events, key=lambda x: x[1], reverse=True)[:8]:
-                    s.timed(f"  {us / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
-            else:
-                s.log("  profiler saw no device time: the window's kernels not measured")
 
             # one 16-case window's gradients on the card against a CPU run of
             # the port from the same weights and window (phase 12's bars)
@@ -4948,7 +4657,7 @@ def main() -> int:
             rel = abs(loss_card - loss_cpu) / abs(loss_cpu)
             s.check(rel <= 1e-5, f"mfmf_config1, one 16-case window's loss, card {loss_card!r} vs CPU "
                                  f"{loss_cpu!r}: relative {rel:.2e} <= 1e-5")
-            del host, cpu_window, cpu_grads, card, model, opt, tables
+            del host, cpu_window, cpu_grads, card, tables
 
             # mfmf_config2: every block has the 5 tabular tokens on its q side
             mc2, ec2 = mfmf_configs(MFMF_CONFIG2, "mfmf_config2")
@@ -5085,11 +4794,10 @@ def main() -> int:
     s.phase("7. where one main-path slide's time goes", profile_phase)
     s.phase("8. K3 attention kernel vs plain", attention_phase)
     s.phase("9. main path: ViT-L/16 TMA feature extraction", vit_phase)
-    s.phase("10. where one ViT-L/16 batch's time goes", vit_profile_phase)
+    s.phase("10. where one bf16 ViT-L/16 batch's time goes", vit_profile_phase)
     s.phase("11. K4 attention backward kernel vs plain", attention_bwd_phase)
     s.phase("12. main path: MFMF survival training", mfmf_phase)
     s.phase("13. where one MFMF training window's time goes", mfmf_profile_phase)
-    s.phase("14. flagship svd_gate_random_clam forward, card vs CPU", flagship_phase)
     s.phase("15. main path: flagship inference throughput", flagship_inference_phase)
     s.phase("16. main path: serving", serving_phase)
     s.phase("17. where one flagship inference window's time goes", flagship_profile_phase)
@@ -5148,10 +4856,10 @@ def main() -> int:
         return 1
     print(json.dumps({"kernels": [s.kernels[name] for name in entries]}))
     print(s.card)
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
-    }}))
+    print(json.dumps({"ok": True, "checks": s.checks, "phase_walls_s": round(sum(s.walls.values()), 1),
+                      "device": {
+                          "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                          "count": torch.cuda.device_count()}}))
     return 0
 
 

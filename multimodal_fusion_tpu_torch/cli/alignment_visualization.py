@@ -15,6 +15,8 @@ from __future__ import annotations
 import argparse
 from pathlib import Path
 
+from multimodal_fusion_tpu_torch.cli import console_script
+
 
 def build_parser():
     p = argparse.ArgumentParser(description="Dump + plot aligned SVD features")
@@ -99,11 +101,7 @@ def main(argv=None):
     return outputs
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

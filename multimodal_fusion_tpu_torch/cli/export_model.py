@@ -14,6 +14,7 @@ from __future__ import annotations
 import argparse
 import json
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.utils.export import (
     PLATFORMS,
     export_alignment_fn,
@@ -85,11 +86,7 @@ def main(argv=None):
     return out
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

@@ -31,6 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.channels import TMA_MARKERS
 from multimodal_fusion_tpu_torch.data.tma_extraction import (
     extract_marker_features,
@@ -135,11 +136,7 @@ def main(argv=None):
     return written
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

@@ -17,6 +17,7 @@ import argparse
 
 import torch
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.models.vae import VAE
 from multimodal_fusion_tpu_torch.train.checkpoint import load_model, load_state
@@ -59,11 +60,7 @@ def main(argv=None):
     return done
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

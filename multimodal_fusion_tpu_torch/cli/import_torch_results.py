@@ -21,6 +21,7 @@ import json
 import shutil
 from pathlib import Path
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.models.factory import ModelFactory
 from multimodal_fusion_tpu_torch.train.checkpoint import save_model
 from multimodal_fusion_tpu_torch.utils.results_io import load_configs
@@ -101,11 +102,7 @@ def main(argv=None):
     return res
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

@@ -41,6 +41,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.channels import parse_channels
 from multimodal_fusion_tpu_torch.config import Configs, ExperimentConfig, ModelConfig
 from multimodal_fusion_tpu_torch.data.splits import create_k_fold_splits
@@ -321,11 +322,7 @@ def main(argv=None) -> Path:
     return run(args, dataset)
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

@@ -21,6 +21,7 @@ from __future__ import annotations
 import argparse
 import json
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.hypergraph.build import (
     batch_cache_similarity,
     batch_rebuild_hypergraph,
@@ -107,11 +108,7 @@ def main(argv=None):
     return stats
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ import argparse
 import numpy as np
 import torch
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.channels import TMA_MARKERS
 from multimodal_fusion_tpu_torch.data.alignment import TMANpzAlignedWithNegDataset
 from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
@@ -163,11 +164,7 @@ def main(argv=None):
     return out
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ import argparse
 
 import torch
 
+from multimodal_fusion_tpu_torch.cli import console_script
 from multimodal_fusion_tpu_torch.data.vae_patches import WSIVAEDataset, split_train_val
 from multimodal_fusion_tpu_torch.models.vae import VAE
 from multimodal_fusion_tpu_torch.parallel.mesh import rank_device
@@ -123,11 +124,7 @@ def main(argv=None):
     )
 
 
-def script_main(argv=None):
-    """Console-script entry: the wrapper exits with its return value, and
-    ``main`` returns a result for programmatic callers."""
-    main(argv)
-    return 0
+script_main = console_script(__name__)
 
 
 if __name__ == "__main__":

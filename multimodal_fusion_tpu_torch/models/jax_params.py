@@ -125,6 +125,31 @@ def _flatten(state: Mapping, prefix=()) -> Dict[tuple, object]:
     return out
 
 
+def flat_jax(state: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
+    """{path tuple: float32 array} of JAX parameters given as a nested pure
+    dict (``nnx.to_pure_dict(nnx.state(model, nnx.Param))``) or flat with
+    tuple or ``.``- or ``/``-joined string paths."""
+    out = {}
+    for key, value in _flatten(state).items():
+        parts = tuple(str(p) for p in key)
+        if len(parts) == 1:
+            parts = tuple(parts[0].replace("/", ".").split("."))
+        out[parts] = np.asarray(value, dtype=np.float32)
+    return out
+
+
+def port_leaf(name: str, arr: np.ndarray) -> Tuple[str, torch.Tensor]:
+    """The port's (name, tensor) of the JAX leaf at the dotted path
+    ``name``: a Linear ``kernel`` [in, out] becomes ``weight`` [out, in], a
+    norm's ``scale`` its ``weight``; any other leaf keeps its name."""
+    prefix, _, leaf = name.rpartition(".")
+    if leaf == "kernel":
+        return f"{prefix}.weight", torch.from_numpy(arr.T.copy())
+    if leaf == "scale":
+        return f"{prefix}.weight", torch.from_numpy(arr.copy())
+    return name, torch.from_numpy(arr.copy())
+
+
 def _match(pattern: Tuple[str, ...], path: Tuple[str, ...], target: str):
     """``target`` with the wildcards of ``pattern`` filled from ``path``,
     or None when ``path`` does not match."""
@@ -180,55 +205,23 @@ def survival_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
     ``kernel`` [in, out] becomes ``weight`` [out, in], a norm's ``scale``
     its ``weight``; names follow :data:`JAX_TO_PORT`.  Load with
     ``model.load_state_dict``."""
-    flat = {}
-    for key, value in _flatten(state).items():
-        parts = tuple(str(p) for p in key)
-        if len(parts) == 1 and "." in parts[0]:
-            parts = tuple(parts[0].split("."))
-        flat[parts] = value
+    flat = flat_jax(state)
     family = _family(flat)
     out: Dict[str, torch.Tensor] = {}
-    for parts, value in flat.items():
+    for parts, arr in flat.items():
         if _dead_in_port(parts, family):
             continue
-        arr = np.asarray(value, dtype=np.float32)
         direct = next((name for pattern in _DIRECT
                        if (name := _match(pattern, parts, ".".join(pattern))) is not None), None)
-        if direct is not None:
-            out[direct] = torch.from_numpy(arr.copy())
-            continue
-        prefix, leaf = _port_prefix(parts[:-1], family), parts[-1]
-        if leaf == "kernel":
-            out[f"{prefix}.weight"] = torch.from_numpy(arr.T.copy())
-        else:
-            out[f"{prefix}.{'weight' if leaf == 'scale' else leaf}"] = torch.from_numpy(arr.copy())
-    return out
-
-
-def _flat_jax(state: Mapping) -> Dict[Tuple[str, ...], np.ndarray]:
-    """{path tuple: float32 array} of a nested pure dict or a flat dict with
-    tuple or ``/``- or ``.``-joined string paths."""
-    out = {}
-    for key, value in _flatten(state).items():
-        parts = tuple(str(p) for p in key)
-        if len(parts) == 1:
-            parts = tuple(parts[0].replace("/", ".").split("."))
-        out[parts] = np.asarray(value, dtype=np.float32)
+        name, tensor = port_leaf(direct or f"{_port_prefix(parts[:-1], family)}.{parts[-1]}", arr)
+        out[name] = tensor
     return out
 
 
 def _linear_state(flat: Dict[Tuple[str, ...], np.ndarray], name_of) -> Dict[str, torch.Tensor]:
-    """Linear layers' ``kernel`` [in, out] / ``bias`` as the port's
-    ``<name>.weight`` [out, in] / ``<name>.bias``; ``name_of`` maps a JAX
-    module path to the port's module name."""
-    out: Dict[str, torch.Tensor] = {}
-    for parts, arr in flat.items():
-        name = name_of(parts[:-1])
-        if parts[-1] == "kernel":
-            out[f"{name}.weight"] = torch.from_numpy(arr.T.copy())
-        else:
-            out[f"{name}.{parts[-1]}"] = torch.from_numpy(arr.copy())
-    return out
+    """Linear layers as the port's parameters (``port_leaf``); ``name_of``
+    maps a JAX module path to the port's module name."""
+    return dict(port_leaf(f"{name_of(parts[:-1])}.{parts[-1]}", arr) for parts, arr in flat.items())
 
 
 def alignment_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
@@ -243,7 +236,7 @@ def alignment_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
             return predictor[path[1]]
         return ".".join(path)
 
-    return _linear_state(_flat_jax(state), name_of)
+    return _linear_state(flat_jax(state), name_of)
 
 
 def vae_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
@@ -252,7 +245,7 @@ def vae_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
     Sequential(Linear, GELU, Dropout, ...) indices), the decoder's output
     layer last in ``decoder.decoder``, ``encoder.fc_mean`` and
     ``encoder.fc_log_var`` as they are."""
-    flat = _flat_jax(state)
+    flat = flat_jax(state)
     n_dec = len({p[2] for p in flat if p[:2] == ("decoder", "layers")})
 
     def name_of(path):

@@ -20,7 +20,6 @@ from __future__ import annotations
 
 from typing import Dict, List, Mapping, Optional
 
-import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -28,6 +27,7 @@ from torch import nn
 from multimodal_fusion_tpu_torch.config import ModelConfig, model_size_dims
 from multimodal_fusion_tpu_torch.models.base import BaseModel, Case, Result, derive_used_modalities
 from multimodal_fusion_tpu_torch.models.common import LayerNorm, dropout, torch_linear
+from multimodal_fusion_tpu_torch.models.jax_params import flat_jax, port_leaf
 from multimodal_fusion_tpu_torch.ops.attention import VALID_IMPLS, attention, draw_case_seeds
 
 DEFAULT_FUSION_SEQUENCE = [
@@ -194,17 +194,6 @@ class MFMF(BaseModel):
         return self.make_result(logits, probs, preds, Y_prob=probs, Y_hat=preds)
 
 
-def _flatten(state: Mapping, prefix=()) -> Dict[tuple, object]:
-    out = {}
-    for key, value in state.items():
-        path = prefix + (key if isinstance(key, tuple) else (key,))
-        if isinstance(value, Mapping):
-            out.update(_flatten(value, path))
-        else:
-            out[path] = value
-    return out
-
-
 def mfmf_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
     """The port's MFMF state dict from the JAX MFMF's parameters, given as
     a nested pure dict (``nnx.to_pure_dict(nnx.state(model, nnx.Param))``)
@@ -213,19 +202,5 @@ def mfmf_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
     becomes ``weight``.  The JAX model's CLAM branches, tabular
     ``transfer_layers`` and ``fusion_fc*`` (built by its ClamMLP base, never
     run by MFMF) are skipped.  Load with ``model.load_state_dict``."""
-    out: Dict[str, torch.Tensor] = {}
-    for key, value in _flatten(state).items():
-        parts = [str(p) for p in key]
-        if len(parts) == 1:
-            parts = parts[0].split(".")
-        if parts[0] not in ("attention_blocks", "mfmf_transfer", "head"):
-            continue
-        prefix, leaf = ".".join(parts[:-1]), parts[-1]
-        arr = np.asarray(value, dtype=np.float32)
-        if leaf == "kernel":
-            out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
-        elif leaf == "scale":
-            out[f"{prefix}.weight"] = torch.from_numpy(arr.copy())
-        else:
-            out[f"{prefix}.{leaf}"] = torch.from_numpy(arr.copy())
-    return out
+    return dict(port_leaf(".".join(parts), arr) for parts, arr in flat_jax(state).items()
+                if parts[0] in ("attention_blocks", "mfmf_transfer", "head"))

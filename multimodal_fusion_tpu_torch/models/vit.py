@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from multimodal_fusion_tpu_torch.models.common import torch_linear
+from multimodal_fusion_tpu_torch.models.jax_params import flat_jax, port_leaf
 from multimodal_fusion_tpu_torch.ops.attention import VALID_IMPLS, attention
 from multimodal_fusion_tpu_torch.ops.resize import resize
 from multimodal_fusion_tpu_torch.utils.profiling import count, span
@@ -327,15 +328,4 @@ def vit_params_from_jax(state: Mapping) -> Dict[str, torch.Tensor]:
     becomes ``weight``; biases, ``cls_token``, ``pos_embed`` and the
     LayerScale ``ls1``/``ls2`` keep their names.  Load the result with
     ``model.load_state_dict``."""
-    out: Dict[str, torch.Tensor] = {}
-    for key, value in state.items():
-        name = ".".join(str(p) for p in key) if isinstance(key, tuple) else str(key)
-        prefix, _, leaf = name.rpartition(".")
-        arr = np.asarray(value, dtype=np.float32)
-        if leaf == "kernel":
-            out[f"{prefix}.weight"] = torch.from_numpy(np.ascontiguousarray(arr.T))
-        elif leaf == "scale":
-            out[f"{prefix}.weight"] = torch.from_numpy(arr.copy())
-        else:
-            out[name] = torch.from_numpy(arr.copy())
-    return out
+    return dict(port_leaf(".".join(parts), arr) for parts, arr in flat_jax(state).items())

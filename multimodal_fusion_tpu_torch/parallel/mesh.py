@@ -45,6 +45,7 @@ import torch
 import torch.distributed as dist
 
 from multimodal_fusion_tpu_torch.device import resolve_device
+from multimodal_fusion_tpu_torch.utils.tree import tree_map
 
 _OPS = {"sum": dist.ReduceOp.SUM, "min": dist.ReduceOp.MIN, "max": dist.ReduceOp.MAX}
 
@@ -189,16 +190,6 @@ def mesh_from_shape(mesh_shape, device=None) -> Optional[Mesh]:
 # batch placement
 # ---------------------------------------------------------------------------
 
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    if tree is None:
-        return None
-    return fn(tree)
-
-
 def divides(mesh: Optional[Mesh], n: int) -> bool:
     """Whether a batch dim of ``n`` shards over ``mesh``."""
     return mesh is not None and n % mesh.size == 0
@@ -234,7 +225,7 @@ def place_batch(mesh: Optional[Mesh], tree, scan: bool = False,
             return x
         return shard_rows(mesh, x, b_axis)
 
-    return _tree_map(place, tree)
+    return tree_map(place, tree)
 
 
 def replicate(mesh: Optional[Mesh], tree):

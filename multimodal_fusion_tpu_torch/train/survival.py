@@ -95,6 +95,7 @@ from multimodal_fusion_tpu_torch.train.metrics import accuracy, binary_auroc, mu
 from multimodal_fusion_tpu_torch.train.optim import LRSchedule, make_optimizer, set_lr
 from multimodal_fusion_tpu_torch.utils.logging import FoldLogger
 from multimodal_fusion_tpu_torch.utils.profiling import span
+from multimodal_fusion_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # device_data="auto" takes the device tables only when they fit this
 # budget (the JAX package's rule, kept as it is)
@@ -143,18 +144,6 @@ class EarlyStopping:
         if self.counter >= self.patience and epoch > self.stop_epoch:
             self.early_stop = True
         return False
-
-
-def _tree_map(fn, tree):
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def _tree_leaves(tree) -> List[Any]:
-    if isinstance(tree, dict):
-        return [leaf for v in tree.values() for leaf in _tree_leaves(v)]
-    return [tree]
 
 
 def window_step(model, optimizer, window, generator, mesh=None, remat: bool = False,
@@ -251,7 +240,7 @@ class SurvivalTrainer:
             t = torch.as_tensor(x)
             return t.to(self.device, dtype=torch.int64 if t.dtype == torch.int32 else None)
 
-        return {k: _tree_map(put, window[k]) for k in _WINDOW_KEYS if k in window}
+        return {k: tree_map(put, window[k]) for k in _WINDOW_KEYS if k in window}
 
     def _device_tables(self, dataset, indices):
         """The cases at ``indices`` as one device-resident table per channel
@@ -272,7 +261,7 @@ class SurvivalTrainer:
         sizes = window_bag_sizes(raws)
         first = pad_case(raws[0], labels[0], sizes)
         first = {k: first[k] for k in ("channels", "masks", "label")}
-        nbytes = len(raws) * sum(np.asarray(x).nbytes for x in _tree_leaves(first))
+        nbytes = len(raws) * sum(np.asarray(x).nbytes for x in tree_leaves(first))
         if nbytes > DEVICE_DATA_AUTO_BUDGET:
             if self.exp.get("device_data", "auto") == "auto":
                 print(f"device_data=auto: tables are {nbytes / 2**30:.1f} GiB "
@@ -287,7 +276,7 @@ class SurvivalTrainer:
             dtype = torch.int64 if x.dtype == torch.int32 else x.dtype
             return torch.empty((len(raws),) + tuple(x.shape), dtype=dtype, device=self.device)
 
-        tables = _tree_map(empty, first)
+        tables = tree_map(empty, first)
         for r, (raw, label) in enumerate(zip(raws, labels)):
             case = first if r == 0 else pad_case(raw, label, sizes)
             for key in tables:
@@ -306,7 +295,7 @@ class SurvivalTrainer:
     @staticmethod
     def _gather_window(tables, idx: torch.Tensor):
         """Row-gather a window out of the device tables."""
-        return _tree_map(lambda t: t.index_select(0, idx), tables)
+        return tree_map(lambda t: t.index_select(0, idx), tables)
 
     def _windows(self, dataset, indices: Sequence[int], G: int):
         """Yield (case ids, numpy window) of <= G cases each, with the

@@ -35,6 +35,7 @@ import numpy as np
 import torch
 
 from multimodal_fusion_tpu_torch.device import resolve_device
+from multimodal_fusion_tpu_torch.utils.tree import tree_map
 
 PLATFORMS = ("cpu", "cuda")
 Programs = Dict[str, "torch.export.ExportedProgram"]
@@ -159,15 +160,6 @@ def export_serving_fn(
     return programs, meta
 
 
-def _tree_map(fn, tree):
-    """``fn`` on every leaf of nested dicts, tuples and lists."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (tuple, list)):
-        return type(tree)(_tree_map(fn, v) for v in tree)
-    return fn(tree)
-
-
 def _export_with_symbolic_batch(make: Callable, specs: Callable, platforms: Sequence[str],
                                 symbolic_batch: bool) -> Tuple[Programs, object]:
     """The shared export harness: ``make(device)`` builds the module on
@@ -183,7 +175,7 @@ def _export_with_symbolic_batch(make: Callable, specs: Callable, platforms: Sequ
             spec = specs(batch, resolve_device(p))
             args = spec if isinstance(spec, tuple) else (spec,)
             # the case axis of every input is the one symbolic size
-            shapes = None if dim is None else _tree_map(lambda _: {0: dim}, args)
+            shapes = None if dim is None else tree_map(lambda _: {0: dim}, args)
             programs[p] = torch.export.export(module, args, dynamic_shapes=shapes, strict=False)
             # the example inputs are zeros of a whole window (67 MB at
             # bench.py's inference cell), which torch.export.save would
@@ -310,11 +302,11 @@ def write_serving_artifact(out_path: str | Path, programs: Programs, meta: Dict)
 
 
 def _to_device(tree, device):
-    return _tree_map(lambda x: torch.as_tensor(np.asarray(x), device=device), tree)
+    return tree_map(lambda x: torch.as_tensor(np.asarray(x), device=device), tree)
 
 
 def _to_numpy(tree):
-    return _tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
 
 
 class ServingArtifact:

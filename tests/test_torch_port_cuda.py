@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_fusion_tpu_torch.channels import TMA_MARKERS
 from multimodal_fusion_tpu_torch.device import resolve_device
 from multimodal_fusion_tpu_torch.ops.attention import (
     fused_attention,
@@ -17,7 +18,7 @@ from multimodal_fusion_tpu_torch.ops.attention import (
     plain_fused_attention_bwd,
 )
 from multimodal_fusion_tpu_torch.ops.attention_kernel import ROUTES, _route, attention_bwd, attention_fwd
-from multimodal_fusion_tpu_torch.io.fixtures import clustered_slide
+from multimodal_fusion_tpu_torch.io.fixtures import TABULAR_DIMS, clustered_slide
 from multimodal_fusion_tpu_torch.ops import _cuda, knn_kernel
 from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise, knn_merge_partials, knn_partials
 from multimodal_fusion_tpu_torch.ops.knn_kernel import KNN_TILE, knn, knn_launch_rows
@@ -45,6 +46,10 @@ def cuda():
         # and D = 1023 (padded to 1024 by the wrapper)
         (128, 128, 16, False), (129, 257, 1000, False), (257, 130, 1023, False),
         (33, 200, 20, True), (129, 131, 1000, True),
+        # the build's: a slide of 4096 patches (f32 and bf16 upload), a
+        # ragged [1000, 3001] at D = 1000, and a blockwise statistics stripe
+        (4096, 4096, 1024, False), (4096, 4096, 1024, True), (1000, 3001, 1000, False),
+        (1024, 65536, 1024, False),
     ],
 )
 def test_similarity_kernel_matches_plain(cuda, m, n, d, bf16):
@@ -143,6 +148,8 @@ def test_blockwise_statistics_equal_the_whole_k(cuda):
         # 4097 keys go in 4 segments of 9, 9, 9 and 6 tiles
         (127, 6, "integer"), (129, 6, "integer"), (4097, 6, "float"), (129, 1, "integer"),
         (129, 128, "integer"), (257, 17, "integer"), (4097, 6, "integer"),
+        # 5000 keys at k 6 and 128; the large-node build's 4096 nodes
+        (5000, 6, "integer"), (5000, 128, "integer"), (4096, 6, "float"),
     ],
 )
 def test_knn_kernel_matches_plain(cuda, n, k, data):
@@ -244,10 +251,11 @@ def test_kernel_wrappers_raise_instead_of_falling_back(cuda):
 
 
 # K3 against its plain version.  f32: o within 2e-5 absolute, l within 1e-5
-# relative, m within 1e-6 relative + 1e-6 absolute (the dots sum in another
-# order; m is exact where the scores are, see the grid case); bf16 o within
-# 2e-2 (p rounds to bf16 before P.V on both sides, a last-bit difference in
-# f32 p can flip one rounding).
+# relative, m within 1e-6 of max(|m|, 1) up to hd 64 and 1e-6 + 1e-6 |m| at
+# hd 128 (the dots sum in another order, over up to 128 products; m is
+# exact where the scores are, see the grid case); bf16 o within 2e-2 (p
+# rounds to bf16 before P.V on both sides, a last-bit difference in f32 p
+# can flip one rounding).
 def _attn_inputs(rng, b, tq, tk, h, hd, dtype, cuda, grid=False):
     def draw(t):
         x = rng.standard_normal((b, t, h, hd))
@@ -274,7 +282,8 @@ def _check_attn(got, want, qkv, mask=None, **dropout):
     if q.dtype == torch.bfloat16:
         scale = plain_fused_attention(q, k, v.abs(), mask, **dropout)[0]
     assert _o_close(got[0], want[0], scale)
-    assert torch.allclose(got[1], want[1], rtol=1e-6, atol=1e-6)
+    m_tol = 1e-6 * want[1].abs().clamp_min(1) if q.shape[-1] <= 64 else 1e-6 + 1e-6 * want[1].abs()
+    assert bool(((got[1] - want[1]).abs() <= m_tol).all())
     assert torch.allclose(got[2], want[2], rtol=1e-5, atol=0)
 
 
@@ -288,6 +297,18 @@ def _check_attn(got, want, qkv, mask=None, **dropout):
         (3, 7, 5, 3, 16, torch.float32),  # hd padded to 32, one partial tile
         (1, 130, 70, 2, 128, torch.float32),
         (1, 130, 70, 2, 128, torch.bfloat16),
+        (32, 257, 257, 16, 64, torch.float32),  # a ViT-L/16 batch
+        (32, 257, 257, 16, 64, torch.bfloat16),
+        (2, 4096, 4096, 8, 64, torch.float32),  # the bag shape
+        (2, 4096, 4096, 8, 64, torch.bfloat16),
+        (64, 5, 512, 8, 16, torch.float32),  # MFMF's blocks 1, 2 (narrow_q), 3 (narrow_k)
+        (64, 5, 512, 8, 16, torch.bfloat16),
+        (64, 5, 4096, 8, 16, torch.float32),
+        (64, 5, 4096, 8, 16, torch.bfloat16),
+        (64, 4096, 5, 8, 16, torch.float32),
+        (64, 4096, 5, 8, 16, torch.bfloat16),
+        (64, 512, 4096, 8, 16, torch.bfloat16),  # mfmf_config1's blocks 2 and 3
+        (64, 4096, 512, 8, 16, torch.bfloat16),
     ],
 )
 def test_attention_kernel_matches_plain(cuda, b, tq, tk, h, hd, dtype):
@@ -306,24 +327,29 @@ def test_attention_kernel_matches_plain(cuda, b, tq, tk, h, hd, dtype):
         _check_attn(got, want, (q, k, v), msk)
 
 
-def test_attention_kernel_m_exact_on_exact_scores(cuda):
+@pytest.mark.parametrize("b,tq,tk,h,dtype", [(2, 100, 90, 2, torch.float32),
+                                              (32, 257, 257, 16, torch.float32),
+                                              (32, 257, 257, 16, torch.bfloat16)])
+def test_attention_kernel_m_exact_on_exact_scores(cuda, b, tq, tk, h, dtype):
     """Where every score is exact in f32 the row max is too."""
-    q, k, v = _attn_inputs(np.random.default_rng(0), 2, 100, 90, 2, 64, torch.float32, cuda, grid=True)
+    q, k, v = _attn_inputs(np.random.default_rng(0), b, tq, tk, h, 64, dtype, cuda, grid=True)
     got = attention_fwd(q, k, v)
     want = plain_fused_attention(q, k, v)
     assert torch.equal(got[1], want[1])
 
 
+# large scores at the short shape; the bag shape's draws as they come
+@pytest.mark.parametrize("tq,tk,h,valid,scale", [(33, 300, 2, 211, 40), (4096, 4096, 8, 3001, 1)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_attention_kernel_masking_replaces(cuda, dtype):
-    """All-masked rows (large scores too) give the uniform average of v and
-    m = -1e9 exactly; keys of a ragged valid length are excluded."""
+def test_attention_kernel_masking_replaces(cuda, dtype, tq, tk, h, valid, scale):
+    """All-masked rows give the uniform average of v and m = -1e9 exactly;
+    keys of a ragged valid length are excluded."""
     rng = np.random.default_rng(1)
-    q, k, v = _attn_inputs(rng, 2, 33, 300, 2, 64, dtype, cuda)
-    q, k = q * 40, k * 40
-    mask = torch.ones((2, 300), dtype=torch.bool, device=cuda)
+    q, k, v = _attn_inputs(rng, 2, tq, tk, h, 64, dtype, cuda)
+    q, k = q * scale, k * scale
+    mask = torch.ones((2, tk), dtype=torch.bool, device=cuda)
     mask[0] = False
-    mask[1, 211:] = False
+    mask[1, valid:] = False
     got = attention_fwd(q, k, v, mask)
     want = plain_fused_attention(q, k, v, mask)
     _check_attn(got, want, (q, k, v), mask)
@@ -333,7 +359,7 @@ def test_attention_kernel_masking_replaces(cuda, dtype):
         scale = plain_fused_attention(q, k, v.abs(), mask)[0]
     uniform = v[0].float().mean(0)[None].expand_as(got[0][0])  # [H, hd] per query
     assert _o_close(got[0][0], uniform, None if scale is None else scale[0])
-    cut = attention_fwd(q[1:], k[1:, :211], v[1:, :211])
+    cut = attention_fwd(q[1:], k[1:, :valid], v[1:, :valid])
     assert _o_close(got[0][1], cut[0][0], None if scale is None else scale[1])
 
 
@@ -349,16 +375,19 @@ def test_attention_kernel_dropout_matches_plain(cuda, dtype):
     assert torch.equal(got[1], undropped[1]) and torch.equal(got[2], undropped[2])
 
 
-def test_attention_kernel_reads_strided_qkv(cuda):
-    """q, k, v as views of a fused [B, T, 3, H, hd] projection."""
+@pytest.mark.parametrize("b,h,dtype", [(2, 4, torch.float32), (32, 16, torch.float32),
+                                       (32, 16, torch.bfloat16)])
+def test_attention_kernel_reads_strided_qkv(cuda, b, h, dtype):
+    """q, k, v as views of a fused [B, T, 3, H, hd] projection (the ViT's)."""
     rng = np.random.default_rng(3)
-    qkv = torch.as_tensor(rng.standard_normal((2, 257, 3, 4, 64)).astype(np.float32), device=cuda)
+    qkv = torch.as_tensor(rng.standard_normal((b, 257, 3, h, 64)).astype(np.float32),
+                          device=cuda).to(dtype)
     q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
     got = attention_fwd(q, k, v)
     want = plain_fused_attention(q.contiguous(), k.contiguous(), v.contiguous())
     _check_attn(got, want, (q, k, v))
     one = attention_fwd(q[1], k[1], v[1])  # unbatched [T, H, hd]
-    assert one[0].shape == (257, 4, 64) and one[1].shape == (4, 257)
+    assert one[0].shape == (257, h, 64) and one[1].shape == (h, 257)
     assert torch.equal(one[0], got[0][1])
 
 
@@ -395,6 +424,12 @@ def _bwd_inputs(rng, b, tq, tk, h, hd, dtype, cuda, mask=None, **dropout):
         (3, 7, 5, 3, 16, torch.float32, None),  # one partial tile each way
         (1, 130, 70, 2, 128, torch.float32, "ragged"),
         (1, 130, 70, 2, 128, torch.bfloat16, "ragged"),
+        # mfmf_config1's block 2 (result -> wsi bag) and block 3
+        # (reconstruct -> result: 8 markers' buckets) at 64 cases
+        (64, 512, 4096, 8, 16, torch.float32, "ragged"),
+        (64, 4096, 512, 8, 16, torch.float32, "markers"),
+        (64, 512, 4096, 8, 16, torch.bfloat16, "ragged"),
+        (64, 4096, 512, 8, 16, torch.bfloat16, "markers"),
     ],
 )
 def test_attention_bwd_kernel_matches_plain(cuda, b, tq, tk, h, hd, dtype, mask_kind):
@@ -438,6 +473,8 @@ def test_attention_bwd_kernel_all_masked_and_per_case_seeds(cuda):
     for g, w in zip(got, want):
         assert _rel_l2(g, w) <= 1e-5
     assert not got[0][0].any() and not got[1][0].any() and got[2][0].abs().max() > 0
+    undropped = attention_bwd(*args, mask)  # case 0's dv through the uniform p: sum_q do / Tk
+    assert float((undropped[2][0] - args[3][0].sum(0) / tk).abs().max()) <= 1e-6
     # one shared seed draws another mask than the per-case seeds
     shared = attention_bwd(*args, mask, dropout_rate=0.1, seed=7)
     assert torch.equal(shared[2][0], got[2][0]) and not torch.equal(shared[2][1], got[2][1])
@@ -602,6 +639,8 @@ _LISTING = [  # (hd, b, tq, tk, mask kind)
     (64, 3, 130, 1100, "wsi"),
     (64, 3, 130, 1100, "scattered"),
     (64, 2, 70, 9000, "wsi"),
+    (16, 64, 512, 4096, "wsi"),  # config1's blocks 2 and 3 at 64 cases
+    (16, 64, 4096, 512, "buckets"),
 ]
 
 
@@ -824,46 +863,77 @@ def test_attention_bwd_raises_instead_of_falling_back(cuda):
         attention_bwd(q, q, q, q, stats[:, :, :4], stats + 1, stats)
 
 
-def _flagship(key, device, dim=256, out=32):
+def _flagship(key, device, script=False):
+    """A flagship-family model: 256-d over five channels, or with ``script``
+    at combined_svd_gate_random_clam.sh's config (1024-d, output 128; WSI,
+    the 8 TMA markers and the 5 tabular groups with masks; two alignment
+    layers; the SVD, gate and random losses on)."""
+    from multimodal_fusion_tpu_torch.channels import parse_channels
     from multimodal_fusion_tpu_torch.config import ModelConfig
     from multimodal_fusion_tpu_torch.models.factory import ModelFactory
 
-    chans = ["wsi=features", "tma=cd3=features", "tma=cd8=features", "clinical=val", "clinical=mask"]
-    cfg = ModelConfig(model_type=key, n_classes=2, input_dim=dim, model_size="64*32", dropout=0.25,
-                      output_dim=out, inst_number=8, base_weight=0.9, subtyping=True,
-                      channels_used_in_model=chans, channel_input_dims={"clinical=val": 16})
+    width = dict(input_dim=256, output_dim=32, channel_input_dims={"clinical=val": 16},
+                 channels_used_in_model=["wsi=features", "tma=cd3=features", "tma=cd8=features",
+                                         "clinical=val", "clinical=mask"])
+    if script:
+        width = dict(input_dim=1024, output_dim=128, alignment_layer_num=2, lambda1=0.1, lambda2=0.1,
+                     tau1=1.0, tau2=1.0, weight_random_loss=0.1, enable_svd=True,
+                     enable_dynamic_gate=True, enable_random_loss=True,
+                     channels_used_in_model=parse_channels(["wsi", "tma"] + [f"{g}_mask" for g in TABULAR_DIMS]),
+                     channel_input_dims={f"{g}=val": d for g, d in TABULAR_DIMS.items()})
+    cfg = ModelConfig(model_type=key, n_classes=2, model_size="64*32", dropout=0.25, inst_number=8,
+                      base_weight=0.9, subtyping=True, **width)
     return ModelFactory.create_model(cfg, seed=0, device=device)
 
 
-def _flagship_window(device, G=4, dim=256, seed=0):
+def _flagship_window(device, G=4, seed=0, script=False):
     """A padded window: WSI bags of 5-600 of 640 slots (some below
-    inst_number), two markers of 3-12 patches, clinical values with a mask."""
+    inst_number), two markers of 3-12 patches, clinical values with a mask.
+    With ``script``, the script's channels as ``make_window`` pads them: WSI
+    bags of 2048-4096 x 1024, each of the 8 markers' 9-16 patches, the 5
+    tabular groups' values with 0/1 masks."""
+    from multimodal_fusion_tpu_torch.data.batching import make_window
+
     rng = np.random.default_rng(seed)
+    put = lambda d: {k: torch.as_tensor(v, device=device) for k, v in d.items()}  # noqa: E731
+    label = torch.as_tensor(np.arange(G) % 2, device=device)
+    if script:
+        raws = [{"wsi=features": rng.standard_normal((rng.integers(2048, 4097), 1024), dtype=np.float32),
+                 **{f"tma={mk}=features": rng.standard_normal((rng.integers(9, 17), 1024), dtype=np.float32)
+                    for mk in TMA_MARKERS},
+                 **{f"{g}={kind}": rng.standard_normal((1, d), dtype=np.float32) if kind == "val" else
+                    (rng.random((1, d)) > 0.2).astype(np.float32)
+                    for g, d in TABULAR_DIMS.items() for kind in ("val", "mask")}} for _ in range(G)]
+        window = make_window(raws, np.arange(G) % 2)
+        return {"channels": put(window["channels"]), "masks": put(window["masks"])}, label
     n = rng.integers(5, 601, G)
     n[0] = 5
     masks = {"wsi=features": np.arange(640)[None, :] < n[:, None]}
-    chans = {"wsi=features": rng.standard_normal((G, 640, dim)).astype(np.float32)}
+    chans = {"wsi=features": rng.standard_normal((G, 640, 256)).astype(np.float32)}
     for mk in ("cd3", "cd8"):
         m = rng.integers(3, 13, G)
-        chans[f"tma={mk}=features"] = rng.standard_normal((G, 16, dim)).astype(np.float32)
+        chans[f"tma={mk}=features"] = rng.standard_normal((G, 16, 256)).astype(np.float32)
         masks[f"tma={mk}=features"] = np.arange(16)[None, :] < m[:, None]
     chans["clinical=val"] = rng.standard_normal((G, 1, 16)).astype(np.float32)
     chans["clinical=mask"] = (rng.random((G, 1, 16)) > 0.2).astype(np.float32)
-    put = lambda d: {k: torch.as_tensor(v, device=device) for k, v in d.items()}  # noqa: E731
-    return ({"channels": put(chans), "masks": put(masks)},
-            torch.as_tensor(np.arange(G) % 2, device=device))
+    return {"channels": put(chans), "masks": put(masks)}, label
 
 
-@pytest.mark.parametrize("key", ["svd_gate_random_clam", "svd_gate_random_clam_detach",
-                                 "deep_supervise_svd_gate_random", "clam_mlp"])
-def test_flagship_forward_card_matches_cpu(cuda, key):
+@pytest.mark.parametrize("key,script", [
+    *(pytest.param(key, False, id=key) for key in (
+        "svd_gate_random_clam", "svd_gate_random_clam_detach", "deep_supervise_svd_gate_random",
+        "clam_mlp")),
+    pytest.param("svd_gate_random_clam", True, id="combined_svd_gate_random_clam"),
+])
+def test_flagship_forward_card_matches_cpu(cuda, key, script):
     """The flagship family's eval forward on the card against the CPU from
     the same weights and window (true float32 on both: TF32 off), and no
-    launch of K1-K4 (no TPU kernel lies on this path)."""
-    card = _flagship(key, cuda)
-    host = _flagship(key, "cpu")
+    launch of K1-K4 (no TPU kernel lies on this path); with ``script`` at
+    combined_svd_gate_random_clam.sh's config on 16 cases."""
+    card = _flagship(key, cuda, script)
+    host = _flagship(key, "cpu", script)
     host.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()})
-    case, label = _flagship_window(cuda)
+    case, label = _flagship_window(cuda, 16 if script else 4, script=script)
     host_case = {k: {c: t.cpu() for c, t in case[k].items()} for k in case}
     counters = (similarity_rect, knn, attention_fwd, attention_bwd)
     before = [fn.launches for fn in counters]
@@ -877,17 +947,27 @@ def test_flagship_forward_card_matches_cpu(cuda, key):
     torch.testing.assert_close(got["logits"].cpu(), want["logits"], rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(got["probabilities"].cpu(), want["probabilities"], rtol=0, atol=1e-5)
     torch.testing.assert_close(loss.cpu(), want_loss, rtol=1e-4, atol=1e-5)
+    if "aligned_features_stack" in want:  # the SVD's input
+        assert _rel_l2(got["aligned_features_stack"], want["aligned_features_stack"]) <= 1e-5
+    if script:  # 7 modalities; logits within 1e-4 absolute, losses 1e-4 relative
+        assert len(card.used_modality) == 7, card.used_modality
+        assert float((got["logits"].cpu() - want["logits"]).abs().max()) <= 1e-4
+        assert float(((loss.cpu() - want_loss).abs() / want_loss.abs()).max()) <= 1e-4
 
 
-def test_flagship_bf16_and_drop_prob_on_card(cuda, tmp_path):
+@pytest.mark.parametrize("script", [pytest.param(False, id="detach"),
+                                    pytest.param(True, id="combined_svd_gate_random_clam")])
+def test_flagship_bf16_and_drop_prob_on_card(cuda, tmp_path, script):
     """bfloat16 evaluation within 4e-2 of float32 probabilities; the detach
     model at drop_prob 0 equals its forward without it, and at drop_prob 1
-    its fusion input is all zeros."""
+    its fusion input is all zeros.  At the script's config the bf16 model
+    is svd_gate_random_clam, on 16 cases."""
     from multimodal_fusion_tpu_torch.config import Configs, ModelConfig
     from multimodal_fusion_tpu_torch.train.survival import SurvivalTrainer
 
-    model = _flagship("svd_gate_random_clam_detach", cuda)
-    case, label = _flagship_window(cuda, seed=1)
+    det = _flagship("svd_gate_random_clam_detach", cuda, script)
+    model = _flagship("svd_gate_random_clam", cuda, script) if script else det
+    case, label = _flagship_window(cuda, 16 if script else 4, seed=1, script=script)
     cfg = Configs(model_config=ModelConfig())
     cfg.model_config.extra["compute_dtype"] = "bfloat16"
     tr = SurvivalTrainer(cfg, tmp_path, device=cuda)
@@ -895,45 +975,53 @@ def test_flagship_bf16_and_drop_prob_on_card(cuda, tmp_path):
     with torch.no_grad():
         p32 = model(case, label)["probabilities"]
         gen = torch.Generator(device=cuda)
-        zero = model(case, label, generator=gen.manual_seed(0), drop_prob=0.0)
-        ones = model(case, label, generator=gen.manual_seed(0), drop_prob=1.0)
-        head = model.fusion_prediction(torch.zeros(len(label), model.fusion_prediction[0].in_features,
-                                                      device=cuda))
+        zero = det(case, label, generator=gen.manual_seed(0), drop_prob=0.0)
+        ones = det(case, label, generator=gen.manual_seed(0), drop_prob=1.0)
+        head = det.fusion_prediction(torch.zeros(len(label), det.fusion_prediction[0].in_features,
+                                                  device=cuda))
+        plain = p32 if det is model else det(case, label)["probabilities"]
     assert p16.dtype == torch.float32 and torch.isfinite(l16).all()
     assert float((p16 - p32).abs().max()) <= 4e-2
-    assert torch.equal(zero["probabilities"], p32)
+    assert torch.equal(zero["probabilities"], plain)
     assert torch.equal(ones["logits"], head)
 
 
-@pytest.mark.parametrize("loss_type,svd_impl,lambda2", [("volume", "gram", 0.0),
-                                                        ("rank1", "gram", 0.1)])
-def test_alignment_step_card_matches_cpu(cuda, loss_type, svd_impl, lambda2):
+@pytest.mark.parametrize("loss_type,svd_impl,lambda2,markers,dim,batch", [
+    pytest.param("volume", "gram", 0.0, ("cd3", "cd8", "he"), 64, 64, id="volume-gram-0.0"),
+    pytest.param("rank1", "gram", 0.1, ("cd3", "cd8", "he"), 64, 64, id="rank1-gram-0.1"),
+    # exp_volume_256_tma.sh and exp_svd_256_tma.sh: 8 markers x 1024, batches of 512
+    pytest.param("volume", "gram", 0.1, TMA_MARKERS, 1024, 512, id="exp_volume_256_tma"),
+    pytest.param("rank1", "gram", 0.1, TMA_MARKERS, 1024, 512, id="exp_svd_256_tma"),
+])
+def test_alignment_step_card_matches_cpu(cuda, loss_type, svd_impl, lambda2, markers, dim, batch):
     """One alignment batch card vs CPU from the same weights, batch and
     predictor dropout masks (drawn by one CPU generator): loss within 1e-5
-    relative, the alignment layers' gradients within 1e-4 relative L2; no
-    kernel of the port is launched."""
+    relative, the alignment layers' gradients within 1e-4 relative L2, the
+    singular values within 1e-4 of the largest; no kernel of the port is
+    launched."""
     from multimodal_fusion_tpu_torch.models.alignment import MultiModalAlignmentModel
     from multimodal_fusion_tpu_torch.train.alignment import MultiModalAlignmentTrainer
 
-    markers = ["cd3", "cd8", "he"]
+    markers = list(markers)
     rng = np.random.default_rng(0)
-    pos = {m: rng.standard_normal((64, 64)).astype(np.float32) / 8 for m in markers}
-    neg = {m: rng.standard_normal((64, 64)).astype(np.float32) / 8 for m in markers}
+    pos = {m: rng.standard_normal((batch, dim)).astype(np.float32) / 8 for m in markers}
+    neg = {m: rng.standard_normal((batch, dim)).astype(np.float32) / 8 for m in markers}
     counters = (similarity_rect, knn, attention_fwd, attention_bwd)
     before = [fn.launches for fn in counters]
     out = {}
     for dev in (cuda, torch.device("cpu")):
-        model = MultiModalAlignmentModel(markers, feature_dim=64, num_layers=2,
+        model = MultiModalAlignmentModel(markers, feature_dim=dim, num_layers=2,
                                          generator=torch.Generator().manual_seed(0)).to(dev)
         tr = MultiModalAlignmentTrainer(model, loss_type=loss_type, svd_impl=svd_impl,
                                         lambda2=lambda2, tau2=0.05, loss2_chunk_size=8)
-        loss, _ = tr._loss(tr._to_device(pos), tr._to_device(neg), torch.Generator().manual_seed(1),
-                           True)
-        out[dev.type] = (loss.detach().cpu(), torch.autograd.grad(loss, tr.params))
+        loss, svd = tr._loss(tr._to_device(pos), tr._to_device(neg),
+                             torch.Generator().manual_seed(1), True)
+        out[dev.type] = (loss.detach().cpu(), torch.autograd.grad(loss, tr.params), svd.detach().cpu())
     assert [fn.launches for fn in counters] == before
-    (lc, gc), (lh, gh) = out["cuda"], out["cpu"]
+    (lc, gc, sc), (lh, gh, sh) = out["cuda"], out["cpu"]
     assert float((lc - lh).abs() / lh.abs()) <= 1e-5
     assert max(_rel_l2(a, b) for a, b in zip(gc, gh)) <= 1e-4
+    assert float((sc - sh).abs().max() / sh.abs().max()) <= 1e-4
 
 
 def test_vae_step_card_matches_cpu(cuda):
