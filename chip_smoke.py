@@ -27,6 +27,9 @@ script keeps the rest:
   mfmf_config1's two general blocks' shapes ([64 x 8, 512 x 4096, 16] with
   the WSI bag's mask, [64 x 8, 4096 x 512, 16] with the markers' bucket
   mask), float32 and bf16;
+- K5, MFMF's LayerNorm, held at mfmf_config1's three norm shapes and
+  timed at the largest ([64 x 4096, 128], float32 forward and backward;
+  phase 46);
 - MFMF survival training at ``mfmf_config0`` width (1024-d inputs,
   output_dim 128, 8 heads, windows of 64 cases) through
   ``SurvivalTrainer.train_fold`` on 160 in-memory cases, with the device
@@ -355,7 +358,8 @@ def _ptxas_summary(log):
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            k = re.search(r"((?:attn|sim|knn)\w*?_kernel)(I\w*?EE)?", m.group(1))
+            # the name after its mangled length, not the anonymous namespace's file tag
+            k = re.search(r"(?<=\d)((?:attn|sim|knn|layer_norm)\w*?_kernel)(I\w*?EE)?", m.group(1))
             args = [] if not k else [
                 {"13__nv_bfloat16": "bf16", "f": "f32"}.get(t, t[2:-1])
                 for t in re.findall(r"13__nv_bfloat16|Li\d+E|f", k.group(2) or "")]
@@ -828,6 +832,12 @@ def main() -> int:
         attention_fwd,
     )
     from multimodal_fusion_tpu_torch.ops.kmeans import kmeans_plus_plus_init
+    from multimodal_fusion_tpu_torch.ops.layer_norm import (
+        layer_norm,
+        layer_norm_bwd,
+        layer_norm_fwd,
+        plain_layer_norm,
+    )
     from multimodal_fusion_tpu_torch.ops.knn import knn_indices, knn_indices_blockwise
     from multimodal_fusion_tpu_torch.ops import losses as losses_mod
     from multimodal_fusion_tpu_torch.ops.knn_kernel import knn
@@ -855,7 +865,8 @@ def main() -> int:
     dev = resolve_device("cuda")
     s = Smoke(torch)
     counters = {"similarity": similarity_rect, "knn": knn, "attention": attention_fwd,
-                "attention_bwd": attention_bwd}
+                "attention_bwd": attention_bwd, "layer_norm": layer_norm, "layer_norm_bwd": layer_norm_bwd}
+    tpu_kernels = ("similarity", "knn", "attention", "attention_bwd")  # K1-K4; K5 replaces none
     main_path_launches = {name: 0 for name in counters}
     routed = {"attention": attention_fwd, "attention_bwd": attention_bwd}  # K3, K4: counts per route
     main_path_routes = {name: dict.fromkeys(ROUTES, 0) for name in routed}
@@ -1934,7 +1945,7 @@ def main() -> int:
 
     def no_kernel_launches(what):
         torch.cuda.synchronize()
-        counts = {name: fn.launches for name, fn in counters.items()}
+        counts = {name: counters[name].launches for name in tpu_kernels}
         s.check(not any(counts.values()), f"{what}: K1-K4 launched 0 times ({counts})")
 
     def flagship_inference_phase():
@@ -4355,7 +4366,7 @@ def main() -> int:
         Configs(mfmf["ec"], mfmf["mc"]).save(mrd / "configs_mfmf_config0.json")
         t0 = time.perf_counter()
         programs, mmeta = export.export_serving_fn(mrd, fold=0, wsi_patches=INF_WSI, tma_patches=INF_TMA)
-        s.timed(f"export_serving_fn, MFMF (attention forced to the plain formulation), both "
+        s.timed(f"export_serving_fn, MFMF (attention and norms forced to the plain formulations), both "
                 f"platforms: {time.perf_counter() - t0:.2f} s wall")
         mart = export.load_serving_artifact(export.write_serving_artifact(td / "mfmf", programs, mmeta))
         mlive = ModelFactory.create_model(mfmf["mc"], device=dev)
@@ -4364,12 +4375,14 @@ def main() -> int:
         chans, masks = padded_window(raws[:16], mmeta["channels"], INF_WSI, INF_TMA)
         reset_counts()
         p, r = mart.call(chans, masks)
-        k3 = attention_fwd.launches
+        k3, k5 = attention_fwd.launches, layer_norm.launches
         lp, lr = live_outputs(mlive, chans, masks)
         routes = {k: v for k, v in attention_fwd.route_launches.items() if v}
-        s.check(mmeta["batch"] == "symbolic" and k3 == 0 and attention_fwd.launches == 3,
-                f"MFMF artifact: batch {mmeta['batch']!r}, K3 launched {k3} times in its call; the "
-                f"live model's eval forward {attention_fwd.launches} times ({routes})")
+        s.check(mmeta["batch"] == "symbolic" and k3 == k5 == 0 and attention_fwd.launches == 3
+                and layer_norm.launches == 9,
+                f"MFMF artifact: batch {mmeta['batch']!r}, K3 launched {k3} and K5 {k5} times in its "
+                f"call; the live model's eval forward K3 {attention_fwd.launches} times ({routes}), K5 "
+                f"{layer_norm.launches} (3 norms a block)")
         err = max(np.abs(p - lp).max(), np.abs(r - lr).max())
         s.check(err <= 1e-4, f"MFMF artifact vs the live model (K3's narrow routes) on 16 cases: "
                              f"{err:.2e} <= 1e-4")
@@ -4579,6 +4592,14 @@ def main() -> int:
         s.check(cases[next(iter(cases))]["device_kind"] == torch.cuda.get_device_name(0).lower(),
                 f"measure_device's device_kind {cases[next(iter(cases))]['device_kind']!r}")
 
+    def norms_checked(what, n_train, n_eval):
+        """K5 once for each of MFMF's 9 norms (3 blocks of q, kv and mlp)
+        a window forward, once a train window backward."""
+        got = (layer_norm.launches, layer_norm_bwd.launches)
+        want = (9 * (n_train + n_eval), 9 * n_train)
+        s.check(got == want, f"{what}: K5 forward {got[0]}, backward {got[1]} times (want {want[0]}, "
+                             f"{want[1]}: 9 norms a window over {n_train} train and {n_eval} eval windows)")
+
     # ---------------------------------------------------------------- 44
     def mfmf_config1_phase():
         """mfmf_config1's fusion order at full width through ``train_fold``
@@ -4613,6 +4634,7 @@ def main() -> int:
                     f"mfmf_config1: routes K3 {attention_fwd.route_launches}, K4 "
                     f"{attention_bwd.route_launches} (want {want_fwd}, {want_bwd}: K4 general twice a "
                     f"train window, {n_train} windows)")
+            norms_checked("mfmf_config1", n_train, n_eval)
             hist = summary["history"]
             probs = [p_["prob"] for p_ in json.loads((td / "config1" / "fold_0_summary.json").read_text())
                      ["patient_results"].values()]
@@ -4673,6 +4695,7 @@ def main() -> int:
             s.check(attention_fwd.route_launches == want_fwd and attention_bwd.route_launches == want_bwd,
                     f"mfmf_config2 train_fold ({wall:.2f} s): routes K3 {attention_fwd.route_launches}, "
                     f"K4 {attention_bwd.route_launches} (want {want_fwd}, {want_bwd})")
+            norms_checked("mfmf_config2", n_train, n_eval)
             s.check(all(np.isfinite([h_["train_loss"], h_["val_loss"]]).all() for h_ in summary2["history"]),
                     "mfmf_config2: losses finite")
         finally:
@@ -4733,6 +4756,7 @@ def main() -> int:
                             f"{exp_code}: routes K3 {attention_fwd.route_launches}, K4 "
                             f"{attention_bwd.route_launches} (want {want_fwd}, {want_bwd}: K3 general "
                             f"twice a window, K4 general twice a train window, {n_train} train windows)")
+                    norms_checked(exp_code, n_train, n_eval)
                 else:
                     no_kernel_launches(f"phase 45, {exp_code}")
                 names = {p_.name for p_ in out_dir.iterdir()}
@@ -4785,6 +4809,72 @@ def main() -> int:
                     f"demo {model_type}: eval logits card vs CPU {err:.2e} <= 1e-4, train loss finite")
         no_kernel_launches("phase 45, the demo")
 
+    # ---------------------------------------------------------------- 46
+    def layer_norm_phase():
+        """K5 at mfmf_config1's three norm shapes, [64 x 4096, 128] (the WSI
+        bag's kv_norm, the reconstruction's q_norm and mlp_norm), [64 x 512,
+        128] and [64 x 5, 128] (a backward grid of 40 blocks): forward and
+        backward held against the plain version (relative L2 <= 1e-5, two
+        launches bit-identical).  At the largest, each timed beside the
+        plain version, ``F.layer_norm`` (a yardstick, two-pass variance;
+        the port never calls it) and the byte bound, 2 passes forward and 3
+        backward."""
+        import torch.nn.functional as F
+
+        width, eps = MFMF_DIM, 1e-6
+        rng = np.random.default_rng(46)
+
+        def randn(shape, scale=1.0, shift=0.0):
+            return torch.as_tensor((rng.standard_normal(shape) * scale + shift).astype(np.float32), device=dev)
+
+        w, b = randn((width,), 0.1, 1.0), randn((width,), 0.02)
+        worst = 0.0
+        for rows in (MFMF_BATCH * MFMF_WSI[1], MFMF_BATCH * 8 * 64, MFMF_BATCH * 5):
+            x, dy = randn((rows, width), 2.0) + randn((width,)), randn((rows, width))
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+
+            def pair(fn):
+                """y and the gradients of x, w and b through autograd."""
+                y = fn(*leaves, eps)
+                return [y.detach(), *torch.autograd.grad(y, leaves, dy)]
+
+            got, again, want = pair(layer_norm), pair(layer_norm), pair(plain_layer_norm)
+            s.check(all(torch.equal(g, a) for g, a in zip(got, again)),
+                    f"K5 [{rows},{width}]: two launches bit-identical")
+            errs = [_rel_l2_all(g, w_) for g, w_ in zip(got, want)]
+            s.check(max(errs) <= 1e-5, f"K5 [{rows},{width}]: relative L2 y {errs[0]:.2e}, dx {errs[1]:.2e}, "
+                                       f"dw {errs[2]:.2e}, db {errs[3]:.2e} <= 1e-5")
+            worst = max([worst] + [float((g - w_).abs().max()) for g, w_ in zip(got, want)])
+            if rows < MFMF_BATCH * MFMF_WSI[1]:
+                continue
+            _, mu, rstd = layer_norm_fwd(x, w, b, eps)
+            fwd_ms = s.cuda_ms(lambda: layer_norm_fwd(x, w, b, eps))
+            bwd_ms = s.cuda_ms(lambda: layer_norm_bwd(dy, x, w, mu, rstd))
+            timings = {}
+            for name, fn in (("plain", plain_layer_norm),
+                             ("library", lambda x_, w_, b_, e: F.layer_norm(x_, (width,), w_, b_, e))):
+                with torch.no_grad():
+                    fwd = s.cuda_ms(lambda: fn(x, w, b, eps))
+                y = fn(*leaves, eps)  # the backward alone, over one kept graph
+                timings[name] = (fwd, s.cuda_ms(lambda: torch.autograd.grad(y, leaves, dy, retain_graph=True)))
+                del y
+            nbytes = rows * width * 4
+            fwd_bound = _bound_ms(0, 2 * nbytes, 4)[0]
+            bwd_bound = _bound_ms(0, 3 * nbytes, 4)[0]
+            s.timed(f"K5 [{rows},{width}] f32: forward {fwd_ms:.4f} ms (bound {fwd_bound:.4f}, "
+                    f"{100 * fwd_bound / fwd_ms:.1f}%), backward {bwd_ms:.4f} ms (bound {bwd_bound:.4f}, "
+                    f"{100 * bwd_bound / bwd_ms:.1f}%); plain {timings['plain'][0]:.4f} forward, "
+                    f"{timings['plain'][1]:.4f} backward; F.layer_norm {timings['library'][0]:.4f} forward, "
+                    f"{timings['library'][1]:.4f} backward")
+            timed = {"layer_norm": (fwd_ms, fwd_bound, 0), "layer_norm_bwd": (bwd_ms, bwd_bound, 1)}
+        for name, (ms, bound, side) in timed.items():
+            s.kernels[name] = {
+                "name": name, "route": "cuda", "source": "multimodal_fusion_tpu_torch/csrc/layer_norm.cu",
+                "replaces": None,  # XLA fused the norm on the TPU
+                "max_abs_err": worst, "ms": ms, "plain_ms": timings["plain"][side], "bound_ms": bound,
+                "bound_by": "bytes", "library_ms": timings["library"][side],
+            }
+
     s.phase("1. device and kernel build", device_phase)
     s.phase("2. K1 similarity kernel vs plain", similarity_phase)
     s.phase("3. K2 knn kernel vs plain", knn_phase)
@@ -4829,6 +4919,7 @@ def main() -> int:
     s.phase("43. device MFU accounting", mfu_phase)
     s.phase("44. main path: MFMF mfmf_config1 and mfmf_config2 training", mfmf_config1_phase)
     s.phase("45. main path: the experiment matrix through the training CLI", matrix_phase)
+    s.phase("46. K5 layer norm kernel at mfmf_config1's norms vs plain", layer_norm_phase)
     if world1:  # the NCCL world of 1 of phases 35-38
         torch.distributed.destroy_process_group()
     for d in (mfmf, flag, flag_train, zoo, hg_run, pre, vae_run, exported):

@@ -8,6 +8,8 @@ from typing import Optional
 import torch
 from torch import nn
 
+from multimodal_fusion_tpu_torch.ops.layer_norm import layer_norm
+
 
 def torch_linear(in_dim: int, out_dim: int, generator: torch.Generator) -> nn.Linear:
     """``nn.Linear`` with torch's default fan-in init (weight and bias
@@ -49,15 +51,16 @@ def dropout(x: torch.Tensor, rate: float, generator: Optional[torch.Generator],
 class LayerNorm(nn.Module):
     """flax ``nnx.LayerNorm``: epsilon 1e-6 and the one-pass variance
     E[x^2] - E[x]^2 clipped at 0 (``nn.LayerNorm`` takes 1e-5 and two
-    passes), scale folded into rsqrt(var + eps) as flax does."""
+    passes), scale folded into rsqrt(var + eps) as flax does.  The norm is
+    ``ops.layer_norm.layer_norm``: kernel K5 on CUDA tensors, unless
+    ``impl`` is set to ``"plain"`` (the composite ops, for tracing)."""
 
     def __init__(self, dim: int, eps: float = 1e-6, device=None):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(dim, device=device))
         self.bias = nn.Parameter(torch.zeros(dim, device=device))
+        self.impl = "auto"
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mu = x.mean(dim=-1, keepdim=True)
-        var = ((x * x).mean(dim=-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return layer_norm(x, self.weight, self.bias, self.eps, impl=self.impl)

@@ -121,6 +121,7 @@ def export_serving_fn(
 ) -> Tuple[Programs, Dict]:
     """Export the fold's eval forward for each platform; returns
     ({platform: ExportedProgram}, metadata)."""
+    from multimodal_fusion_tpu_torch.models.common import LayerNorm
     from multimodal_fusion_tpu_torch.models.factory import ModelFactory
     from multimodal_fusion_tpu_torch.train.checkpoint import load_model
     from multimodal_fusion_tpu_torch.utils.results_io import load_configs
@@ -132,11 +133,14 @@ def export_serving_fn(
 
     def make(device):
         model = ModelFactory.create_model(mc, seed=configs.experiment_config.seed, device=device)
+        # the kernels launch through ctypes (ops/_cuda.py), which
+        # torch.export cannot trace: export the plain formulations, as the
+        # JAX exporter forces XLA's over Pallas
         for blk in getattr(model, "attention_blocks", {}).values():
-            # the attention kernels launch through ctypes (ops/_cuda.py),
-            # which torch.export cannot trace: export the plain einsum
-            # formulation, as the JAX exporter forces XLA's over Pallas
             blk.attn_impl = "xla"
+        for norm in model.modules():
+            if isinstance(norm, LayerNorm):  # MFMF's and PS3's, K5 on the card
+                norm.impl = "plain"
         load_model(path, model)
         return _SurvivalForward(model)
 

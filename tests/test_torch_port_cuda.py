@@ -22,6 +22,7 @@ from multimodal_fusion_tpu_torch.io.fixtures import TABULAR_DIMS, clustered_slid
 from multimodal_fusion_tpu_torch.ops import _cuda, knn_kernel
 from multimodal_fusion_tpu_torch.ops.knn import knn_indices_blockwise, knn_merge_partials, knn_partials
 from multimodal_fusion_tpu_torch.ops.knn_kernel import KNN_TILE, knn, knn_launch_rows
+from multimodal_fusion_tpu_torch.ops.layer_norm import layer_norm, layer_norm_bwd, plain_layer_norm
 from multimodal_fusion_tpu_torch.ops.similarity_kernel import (
     similarity_rect,
     similarity_rect_plain,
@@ -861,6 +862,142 @@ def test_attention_bwd_raises_instead_of_falling_back(cuda):
         attention_bwd(wide, wide, wide, wide, stats[0], stats[0] + 1, stats[0])
     with pytest.raises(ValueError):  # statistics of the wrong shape
         attention_bwd(q, q, q, q, stats[:, :, :4], stats + 1, stats)
+
+
+# K5 (LayerNorm) against its plain version, the composite ops it replaced,
+# on the same card: relative L2 <= 1e-5 for y, dx, dw and db in float32 (the
+# row sums and the sums over rows go in other orders); a bf16 y within 2^-8
+# relative L2 of float32's plain y on the same values (one rounding to bf16).
+def _ln_inputs(shape, cuda, seed, offset=False):
+    rng = np.random.default_rng(seed)
+    width = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32) * 2.0 + rng.standard_normal(width).astype(np.float32)
+    w = (1.0 + 0.1 * rng.standard_normal(width)).astype(np.float32)
+    b = (0.02 * rng.standard_normal(width)).astype(np.float32)
+    dy = rng.standard_normal(shape).astype(np.float32)
+    x, w, b, dy = (torch.as_tensor(a, device=cuda) for a in (x, w, b, dy))
+    if offset:  # contiguous but 4 bytes off 16: the kernels' scalar loads
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(shape)
+    return x, w, b, dy
+
+
+def _ln_run(fn, x, w, b, dy):
+    leaves = [t.detach().clone().requires_grad_(True) for t in (x, w, b)]
+    if x.data_ptr() % 16:  # keep the offset of the input under test
+        leaves[0] = x.detach().requires_grad_(True)
+    y = fn(*leaves, 1e-6)
+    y.backward(dy)
+    return [y.detach()] + [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("shape,offset", [
+    ((64, 4096, 128), False), ((64, 512, 128), False), ((64, 5, 128), False),  # mfmf_config1's
+    ((1000, 18), False), ((1000, 36), False), ((1000, 64), False), ((1000, 256), False),
+    ((513, 1024), False), ((777, 128), True), ((9, 1000), False),
+], ids=["config1_bag", "config1_markers", "config1_tabular", "w18", "w36", "w64", "w256", "w1024",
+        "w128_offset", "w1000"])
+def test_layer_norm_kernel_matches_plain(cuda, shape, offset):
+    x, w, b, dy = _ln_inputs(shape, cuda, sum(shape), offset)
+    before = (layer_norm.launches, layer_norm_bwd.launches,
+              profiling.counters().get("layer_norm.fused", 0))
+    got = _ln_run(layer_norm, x, w, b, dy)
+    torch.cuda.synchronize()
+    after = (layer_norm.launches, layer_norm_bwd.launches, profiling.counters().get("layer_norm.fused", 0))
+    assert after == tuple(n + 1 for n in before)
+    want = _ln_run(plain_layer_norm, x, w, b, dy)
+    for name, g, t in zip(("y", "dx", "dw", "db"), got, want):
+        assert _rel_l2(g, t) <= 1e-5, name
+
+
+@pytest.mark.parametrize("width", [2, 36, 128])
+def test_layer_norm_kernel_constant_zero_and_clipped_rows(cuda, width):
+    """Constant rows (variance 0), all-zero padding rows (y = b) and, at
+    width 2, rows whose raw variance E[x^2] - mu^2 rounds below 0 and is
+    clipped (x = 1 + 2^-23, 1 + 2^-22: every sum exact but the squares',
+    so both sides round alike), among ordinary rows: each row's y and dx
+    within 1e-5 relative L2 of the plain version's, dw and db too.  At
+    width 2 the ordinary rows are (1, 1 + 2^-23), variance 2^-23 unclipped:
+    a pair of spread values has dx of 1 - xhat^2, all cancellation."""
+    x, w, b, dy = _ln_inputs((48, width), cuda, width)
+    x[0::4] = 0.75
+    x[1::4] = 0.0
+    if width == 2:
+        x[2::4] = torch.tensor([1 + 2 ** -23, 1 + 2 ** -22], device=cuda)
+        x[3::4] = torch.tensor([1.0, 1 + 2 ** -23], device=cuda)
+        xs = x[2::4]
+        mu = xs.mean(-1)
+        assert bool(((xs * xs).mean(-1) - mu * mu < 0).all())  # the plain version clips them
+    got = _ln_run(layer_norm, x, w, b, dy)
+    want = _ln_run(plain_layer_norm, x, w, b, dy)
+    assert torch.equal(got[0][1::4], b.expand(12, width))
+    for name, g, t in zip(("y", "dx"), got, want):
+        rows = [_rel_l2(g[i], t[i]) for i in range(48)]
+        assert max(rows) <= 1e-5, (name, int(np.argmax(rows)))
+    for name, g, t in zip(("dw", "db"), got[2:], want[2:]):
+        assert _rel_l2(g, t) <= 1e-5, name
+
+
+@pytest.mark.parametrize("shape", [(64, 512, 128), (1000, 36)], ids=["config1_markers", "w36"])
+def test_layer_norm_kernel_bf16_forward(cuda, shape):
+    x, w, b, _ = _ln_inputs(shape, cuda, 3)
+    x, w, b = x.bfloat16(), w.bfloat16(), b.bfloat16()
+    y = layer_norm(x, w, b)
+    assert y.dtype == torch.bfloat16
+    assert _rel_l2(y, plain_layer_norm(x.float(), w.float(), b.float(), 1e-6)) <= 2 ** -8
+    with pytest.raises(ValueError, match="float32"):  # bf16 runs forward only
+        layer_norm(x, w.requires_grad_(True), b).sum().backward()
+
+
+@pytest.mark.parametrize("shape", [(64, 4096, 128), (64, 512, 128), (64, 5, 128)],
+                         ids=["config1_bag", "config1_markers", "config1_tabular"])
+def test_layer_norm_kernel_forward_is_the_composite_bit_for_bit(cuda, shape):
+    """At mfmf_config1's width the forward's y equals the composite ops' on
+    the card bit for bit: the kernel rounds each product and sum as they
+    do, and the row sums of 128 values come out the same."""
+    x, w, b, _ = _ln_inputs(shape, cuda, 7)
+    with torch.no_grad():
+        assert torch.equal(layer_norm(x, w, b), plain_layer_norm(x, w, b, 1e-6))
+
+
+def test_layer_norm_kernel_refuses_a_trace(cuda):
+    """Under torch.export K5 raises rather than take the plain version
+    unasked; a LayerNorm set to "plain" exports the composite ops and
+    launches nothing."""
+    from multimodal_fusion_tpu_torch.models.common import LayerNorm
+
+    module = LayerNorm(128, device=cuda)
+    x = torch.randn(4, 128, device=cuda)
+    with pytest.raises(RuntimeError, match="impl='plain'"):
+        torch.export.export(module, (x,), strict=False)
+    module.impl = "plain"
+    before = layer_norm.launches
+    program = torch.export.export(module, (x,), strict=False)
+    with torch.no_grad():
+        assert torch.equal(program.module()(x), plain_layer_norm(x, module.weight, module.bias, 1e-6))
+    assert layer_norm.launches == before
+
+def test_layer_norm_kernel_two_launches_bit_identical(cuda):
+    x, w, b, dy = _ln_inputs((64, 4096, 128), cuda, 11)
+    one, two = (_ln_run(layer_norm, x, w, b, dy) for _ in range(2))
+    assert all(torch.equal(a, c) for a, c in zip(one, two))
+
+
+def test_layer_norm_kernel_refuses_what_it_cannot_serve(cuda):
+    x, w, b, _ = _ln_inputs((4, 1025), cuda, 0)
+    with pytest.raises(ValueError, match="width 1025"):
+        layer_norm(x, w, b)
+    x, w, b, _ = _ln_inputs((4, 64), cuda, 0)
+    with pytest.raises(ValueError):  # float64 is not a K5 dtype
+        layer_norm(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError):  # mixed dtypes
+        layer_norm(x, w.bfloat16(), b)
+    with pytest.raises(ValueError):  # a parameter of another width
+        layer_norm(x, w[:32], b)
+    dy = torch.ones_like(x)
+    with pytest.raises(ValueError):  # dy of another shape
+        layer_norm_bwd(dy[:2], x, w, torch.zeros(4, device=cuda), torch.ones(4, device=cuda))
 
 
 def _flagship(key, device, script=False):

@@ -168,6 +168,26 @@ def test_survival_artifact_matches_jax(dirs, tmp_path, name):
     np.testing.assert_allclose(risk, live_risk, **TOL)
 
 
+def test_export_takes_the_plain_formulations(dirs, monkeypatch):
+    """The exporter traces MFMF with attention's einsum form and the
+    LayerNorms' composite ops: the kernels' ctypes launches cannot enter
+    a traced graph, and on the card a traced K5 raises."""
+    from multimodal_fusion_tpu_torch.models.common import LayerNorm
+
+    traced = []
+    plain_export = torch.export.export
+
+    def spy(module, *args, **kwargs):
+        traced.append(module.model)
+        return plain_export(module, *args, **kwargs)
+
+    monkeypatch.setattr(torch.export, "export", spy)
+    export.export_serving_fn(dirs["mfmf"][1], wsi_patches=WSI, tma_patches=TMA, platforms=["cpu"])
+    norms = [m.impl for m in traced[0].modules() if isinstance(m, LayerNorm)]
+    assert len(norms) == 9 and set(norms) == {"plain"}
+    assert {blk.attn_impl for blk in traced[0].attention_blocks.values()} == {"xla"}
+
+
 def test_fixed_batch_and_refusals(dirs, tmp_path, monkeypatch):
     """--fixed_batch exports batch 1 on both sides; a hypergraph channel is
     refused with the JAX package's message; a load for a platform the
